@@ -1,0 +1,41 @@
+"""fpmatch_tpu_torch — the PyTorch/CUDA port of `fpmatch_tpu`.
+
+Deep graph matching for fingerprint verification over sweat-pore keypoint
+graphs, for one NVIDIA Hopper GPU. The JAX package `fpmatch_tpu` beside this
+one is the reference; this package imports none of it (and no JAX) and keeps
+its own copies of the host-side code it needs. Modules sit at the same paths
+as their JAX counterparts:
+
+  core/     typed configs, host-side graph construction
+  ops/      batch-native graph-matching math in plain PyTorch (Sinkhorn,
+            soft top-k, feature alignment, spline conv, factorized
+            association-graph matvec)
+  kernels/  hand-written CUDA C++ kernels (sources under kernels/csrc/, built
+            with nvcc for sm_90a at first use) with a plain PyTorch version
+            beside each
+  models/   nn.Modules: ResNet-18 backbone, spline net, association-graph GNN
+            layers, AFA-U k-predictor, match classifier, the full NGMNet
+  data/     numpy batch construction (synthetic pairs, collation, keypoints)
+  cli/      entry points (single-pair serving: `cli.match`)
+  convert   Flax variable tree (as numpy) -> state_dict
+
+Where the JAX package lifts single-pair functions with vmap, this package is
+batch-native: functions take (B, ...) tensors and per-sample counts. Entry
+points run on `cuda` unless the caller passes `device="cpu"`.
+"""
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda"):
+    """The torch.device an entry point runs on. `cuda` (the default) raises
+    when no GPU is present: entry points never carry on on the CPU unless the
+    caller asked for it."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    return dev

@@ -1,0 +1,252 @@
+"""One-shot fingerprint pair verification: two images -> match verdict.
+
+Give two fingerprint images with their keypoint files and get a verification
+score, the predicted matchable-keypoint count and the greedy keypoint
+correspondence as one JSON line on stdout. Same flags and JSON keys as the
+JAX package's `cli/match.py`, plus `--device` (default `cuda`; `cuda` without
+a GPU is an error, never a silent CPU run).
+
+Keypoints come from `--kpts1/--kpts2` files (.tsv/.csv/.txt). Pairs in a
+bucket of `--n-max >= 256` keypoints (or `--univ-kernel`) take the UNIV route:
+the three association-GNN aggregations run through the CUDA kernel of
+`kernels/assoc_univ_v3`.
+
+Weights: `--checkpoint-dir D --checkpoint NAME` loads the state_dict file
+`D/NAME.pt` (as `convert.from_flax_variables` produces; `torch.save`); with
+no checkpoint the weights are initialised from `--seed`.
+
+The work is split so that a server (or a script without image files) can
+enter below the file reading: `read_pair` is the only function that touches
+files and `cv2`; `match_arrays` takes two standardized image arrays and two
+keypoint arrays and returns the result dict.
+
+Example:
+    python -m fpmatch_tpu_torch.cli.match a.png b.png \
+        --kpts1 a.tsv --kpts2 b.tsv --n-max 600 --e-max 3840
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def _waits(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, {item})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Verify whether two fingerprint images match")
+    ap.add_argument("image1")
+    ap.add_argument("image2")
+    ap.add_argument("--kpts1", default=None,
+                    help="keypoint file for image1 (.tsv/.csv/.txt)")
+    ap.add_argument("--kpts2", default=None)
+    ap.add_argument("--detector", default="dpf", choices=["dpf", "cnn"],
+                    help="pore detector when no keypoint file is given "
+                         "(not ported yet)")
+    ap.add_argument("--detector-arch", default="net17nomax")
+    ap.add_argument("--detector-checkpoint", default=None)
+    ap.add_argument("--detector-probability", type=float, default=0.65)
+    ap.add_argument("--detector-nms-iou", type=float, default=0.2)
+    ap.add_argument("--checkpoint-dir", default="checkpoints")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint name (default: latest in meta)")
+    ap.add_argument("--score", default="fused",
+                    choices=["fused", "cls", "k"],
+                    help="verification score: fused cls*k (default), cls, "
+                         "or k alone")
+    ap.add_argument("--discretize", default="greedy",
+                    choices=["greedy", "hungarian"],
+                    help="'hungarian' is not ported yet")
+    ap.add_argument("--threshold", type=float, default=None,
+                    help="decision threshold; when set, the JSON carries "
+                         "a genuine true/false verdict")
+    ap.add_argument("--viz", default=None, help="not ported yet")
+    ap.add_argument("--n-max", type=int, default=64)
+    ap.add_argument("--e-max", type=int, default=384)
+    ap.add_argument("--univ", type=int, default=600)
+    ap.add_argument("--node-taps", default="layer3")
+    ap.add_argument("--cls-k-features", action="store_true")
+    ap.add_argument("--hyperedge", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="whole-model bfloat16 compute (not ported yet)")
+    ap.add_argument("--univ-kernel", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="route the assoc-GNN aggregations through the "
+                         "assoc_univ_v3 kernel (default: auto, on when "
+                         "--n-max >= 256)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; pass cpu to run on "
+                         "the CPU)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weight init used without a checkpoint")
+    return ap
+
+
+def read_meta(ckpt_dir: str) -> dict:
+    meta_path = os.path.join(os.path.abspath(ckpt_dir), "checkpoint.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            return json.load(f)
+    return {}
+
+
+def read_pair(args):
+    """Everything that reads files: both images, both keypoint files, the
+    standardize step. Returns ((img1, P1), (img2, P2)) — (240, 320, 3) uint8
+    images and (n, 2) float32 keypoints inside the crop — or an error dict."""
+    from pathlib import Path
+
+    from ..data.augmentation import standardize
+    from ..data.dataset import read_keypoints
+    from ..data.pipeline import _annos_of, _load_image
+
+    views = []
+    for path, kpts, prefix in ((args.image1, args.kpts1, "q1"),
+                               (args.image2, args.kpts2, "q2")):
+        if not kpts:
+            raise _waits("keypoint detection (--detector dpf|cnn)",
+                         "Queue A: pore-detector route")
+        img = _load_image(path)
+        views.append((img, _annos_of(read_keypoints(Path(kpts), prefix))))
+    if not views[0][1] or not views[1][1]:
+        return {"error": "no keypoints found",
+                "n_kpts": [len(views[0][1]), len(views[1][1])]}
+    out = []
+    for img, annos in views:
+        im, an = standardize(img, annos)
+        out.append((im, an[:args.n_max]))
+    if not out[0][1] or not out[1][1]:
+        # standardize's 240x320 centre crop can drop every keypoint
+        return {"error": "no keypoints inside the standardized 240x320 crop",
+                "n_kpts": [len(out[0][1]), len(out[1][1])]}
+    return tuple(
+        (im, np.array([[x, y] for _, x, y in an], np.float32).reshape(-1, 2))
+        for im, an in out)
+
+
+def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
+    """Host side of one request: Delaunay graphs, the padded single-pair
+    batch and, on the UNIV route, the kernel's plan. Returns (batch of numpy
+    arrays, plan or None)."""
+    from ..core.build_graphs import build_edges
+    from ..data.pipeline import PairSample, collate
+
+    n_max, e_max = cfg.shapes.n_max, cfg.shapes.e_max
+    P1 = np.asarray(P1, np.float32).reshape(-1, 2)[:n_max]
+    P2 = np.asarray(P2, np.float32).reshape(-1, 2)[:n_max]
+    _, s1, d1 = build_edges(P1, stg=cfg.data.src_graph_construct)
+    _, s2, d2 = build_edges(P2, stg=cfg.data.src_graph_construct)
+    s1, d1 = s1[:e_max], d1[:e_max]
+    s2, d2 = s2[:e_max], d2[:e_max]
+    sample = PairSample(images=(img1, img2), points=(P1, P2),
+                        edges=((s1, d1), (s2, d2)),
+                        perm=np.zeros((len(P1), len(P2)), np.float32),
+                        label=0.0, cls=("q1", "q2"))
+    batch = collate([sample], cfg)
+    plan = None
+    if univ_kernel or (univ_kernel is None and n_max >= 256):
+        # plan over the PADDED bucket: pad nodes have no edges, Kp/Ke = 0
+        from ..kernels.assoc_univ_v3 import plan_univ_v3
+        plan = plan_univ_v3(n_max, n_max, s1, d1, s2, d2, transpose=True)
+    return batch, plan
+
+
+def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
+                 threshold=None, univ_kernel=None, checkpoint=None,
+                 return_outputs: bool = False):
+    """Serve one request below the file reading.
+
+    :param model: an NGMNet (its device is where the request runs)
+    :param img1, img2: standardized (240, 320, 3) RGB or (240, 320[, 1])
+        grayscale uint8 images
+    :param P1, P2: (n, 2) float32 keypoints (x, y) in image pixels
+    :return: the result dict the CLI prints (and, with `return_outputs`,
+        the model's output dict)
+    """
+    cfg = model.cfg
+    batch, plan = build_request(img1, P1, img2, P2, cfg, univ_kernel)
+    dev = next(model.parameters()).device
+    out = model(batch.to(dev), univ_plan=plan)
+
+    cls_prob = float(out["cls_prob"][0])
+    k_prob = float(out["k_prob"][0])
+    sc = {"fused": cls_prob * k_prob, "cls": cls_prob, "k": k_prob}[score]
+    n1, n2 = int(batch.n_nodes[0, 0]), int(batch.n_nodes[0, 1])
+    perm = out["perm_mat"][0, :n1, :n2].cpu().numpy()
+    pairs = [[int(i), int(j)] for i, j in zip(*np.nonzero(perm))]
+    result = {
+        "score": round(sc, 6),
+        "score_kind": score,
+        "cls_prob": round(cls_prob, 6),
+        "k_prob": round(k_prob, 6),
+        "k_pred": round(k_prob * min(n1, n2), 2),
+        "n_kpts": [n1, n2],
+        "n_matched": len(pairs),
+        "matches": pairs,
+        "checkpoint": checkpoint,
+    }
+    if threshold is not None:
+        result["threshold"] = threshold
+        result["genuine"] = bool(sc >= threshold)
+    return (result, out) if return_outputs else result
+
+
+def load_model(cfg, args):
+    """The serving model on `args.device`: checkpoint weights when one is
+    named or recorded as latest, else weights initialised from `--seed`.
+    Returns (model, checkpoint name or None)."""
+    import torch
+
+    from ..models.ngm import build_model
+
+    ckpt_name = args.checkpoint or read_meta(args.checkpoint_dir).get(
+        "latest")
+    state_dict = None
+    if ckpt_name:
+        state_dict = torch.load(
+            os.path.join(os.path.abspath(args.checkpoint_dir),
+                         f"{ckpt_name}.pt"),
+            map_location="cpu", weights_only=True)
+    else:
+        print("WARNING: no checkpoint found — scoring with random weights",
+              file=sys.stderr)
+    return build_model(cfg, device=args.device, seed=args.seed,
+                       state_dict=state_dict), ckpt_name
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from . import model_config_from_args
+    from .. import resolve_device
+
+    if args.discretize == "hungarian":
+        raise _waits("--discretize hungarian", "Queue A: hungarian + native/")
+    if args.viz:
+        raise _waits("--viz", "Queue A: remaining CLIs / utils")
+    resolve_device(args.device)          # fail before any work without a GPU
+    cfg = model_config_from_args(args)
+
+    pair = read_pair(args)
+    if isinstance(pair, dict):
+        print(json.dumps(pair))
+        return 2
+    (i1, P1), (i2, P2) = pair
+
+    model, ckpt_name = load_model(cfg, args)
+    result = match_arrays(model, i1, P1, i2, P2, score=args.score,
+                          threshold=args.threshold,
+                          univ_kernel=args.univ_kernel, checkpoint=ckpt_name)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

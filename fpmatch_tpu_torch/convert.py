@@ -1,0 +1,86 @@
+"""Weights carried across: a Flax `variables` tree of the JAX package's
+`NGMNet`, handed over as numpy arrays, becomes a `state_dict` of this
+package's `NGMNet`.
+
+The two models name their children alike, so the mapping is by path:
+
+  Dense  `kernel` (in, out)        -> `weight` (out, in)
+  Conv   `kernel` HWIO             -> `weight` OIHW
+  BatchNorm `scale` / `bias`       -> `weight` / `bias`
+  batch_stats `mean` / `var`       -> `running_mean` / `running_var`
+  raw parameters (`conv{i}_weight`, `conv{i}_root`, `conv{i}_bias`,
+  `mix{1,2}_{weight,bias}`, `norm{1,2}_{scale,bias}`)  -> carried by name
+
+The caller converts its tree to numpy first (e.g.
+`jax.tree_util.tree_map(np.asarray, variables)`); nothing here imports JAX.
+Activations need no conversion: both packages keep images and feature maps
+channels-last at their public boundaries.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .core.config import Config
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def flax_tree_to_state_dict(params: Mapping, batch_stats: Mapping = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The naming rules above applied to any Flax module's variables (no
+    check against a torch module)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(path, name, arr):
+        out[".".join(path + (name,))] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, copy=True))
+
+    for path, arr in _flatten(params):
+        *mod, leaf = path
+        mod = tuple(mod)
+        if leaf == "kernel" and arr.ndim == 2:
+            put(mod, "weight", arr.T)
+        elif leaf == "kernel" and arr.ndim == 4:
+            put(mod, "weight", arr.transpose(3, 2, 0, 1))
+        elif leaf == "scale":
+            put(mod, "weight", arr)
+        else:                       # bias, raw parameters
+            put(mod, leaf, arr)
+    for path, arr in _flatten(batch_stats or {}):
+        *mod, leaf = path
+        put(tuple(mod), {"mean": "running_mean", "var": "running_var"}[leaf],
+            arr)
+    return out
+
+
+def from_flax_variables(variables: Mapping, cfg: Config
+                        ) -> Dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} of numpy arrays -> state_dict for
+    `models.ngm.NGMNet(cfg)`. Raises if the converted keys or shapes do not
+    cover the model's own state_dict exactly."""
+    from .models.ngm import NGMNet
+
+    out = flax_tree_to_state_dict(variables["params"],
+                                  variables.get("batch_stats"))
+    want = NGMNet(cfg).state_dict()
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            out.setdefault(k, torch.zeros_like(v))
+    missing = sorted(set(want) - set(out))
+    extra = sorted(set(out) - set(want))
+    bad = sorted(k for k in set(want) & set(out)
+                 if tuple(want[k].shape) != tuple(out[k].shape))
+    if missing or extra or bad:
+        raise ValueError(
+            f"converted tree does not match NGMNet(cfg): missing={missing} "
+            f"unexpected={extra} shape-mismatch={bad}")
+    return out

@@ -1,0 +1,152 @@
+"""Typed configuration tree (host code).
+
+Field-for-field the same tree as the JAX package's `core/config.py`: the
+weight converter, the CLIs and the parity tests rely on the names and the
+defaults. Fields that configure code not ported yet (training stages, mesh)
+are kept so a config round-trips between the two packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """Static shape buckets: every ragged quantity (nodes, edges, triangles)
+    is padded to these maxima and accompanied by an integer count."""
+
+    n_max: int = 64          # max keypoints per graph (bucket)
+    e_max: int = 384         # max directed edges per graph (Delaunay e ~ 6n)
+    t_max: int = 384         # max hyperedge (triangle) slots
+    univ_size: int = 600     # AFA-U one-hot embedding width
+
+    @property
+    def assoc_nodes(self) -> int:
+        return self.n_max * self.n_max
+
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    """ResNet-18 split: node features from layer3 (stride 16, 256ch), edge
+    features from layer4 (stride 32, 512ch), global feature from a global
+    max-pool of layer4."""
+
+    kind: str = "resnet18"   # "vgg16" / "vgg16_bn" / "none" are not ported
+    node_channels: int = 256
+    edge_channels: int = 512
+    dtype: str = "float32"
+    # stages contributing node features; add "layer2" (stride 8, 128ch) and
+    # raise NGMConfig.node_feature_dim by 128
+    node_taps: Tuple[str, ...] = ("layer3",)
+    # width/depth knobs (defaults = ResNet-18; shrink for tests)
+    stem_channels: int = 64
+    stage_channels: Tuple[int, int, int, int] = (64, 128, 256, 512)
+    blocks_per_stage: int = 2
+    remat: bool = False
+
+
+@dataclass(frozen=True)
+class NGMConfig:
+    """Neural graph matching network."""
+
+    node_feature_dim: int = 768        # 256 + 512
+    global_state_dim: int = 1024       # 2 * 512
+    gnn_layers: int = 3
+    gnn_feat: Tuple[int, ...] = (16, 16, 16)
+    spline_layers: int = 2
+    sk_emb: int = 1                    # Sinkhorn embedding channels per layer
+    sk_tau: float = 0.01
+    sk_iter: int = 10                  # final Sinkhorn iterations
+    sk_layer_iter: int = 20            # per-GNN-layer Sinkhorn iterations
+    sk_epsilon: float = 1e-10
+    k_factor: float = 50.0
+    first_order: bool = True           # init assoc-node features from vec(Kp)
+    positive_edges: bool = True
+    regression: bool = True            # learn k via AFA-U
+    mean_k: bool = True
+    afa_head_num: int = 16
+    afa_qkv_dim: int = 16
+    afa_ff_hidden: int = 256
+    afa_ms_hidden: int = 16
+    afa_reg_hidden: int = 8
+    # fixed extra soft-top-k iterations, gated per sample by the overshoot
+    # predicate
+    topk_extra_iter: int = 6
+    match_cls_channels: Tuple[int, ...] = (16, 32)
+    cls_k_features: bool = False       # not ported yet
+    hyperedge: bool = False            # not ported yet
+    remat_sinkhorn: bool = True        # training-only knob
+    compute_dtype: str = "float32"     # "bfloat16" whole-model path not ported
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    rescale: Tuple[int, int] = (320, 240)     # (W, H) after standardize
+    src_graph_construct: str = "tri"
+    tgt_graph_construct: str = "same"
+    sym_adjacency: bool = True
+    norm_means: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    norm_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    batch_size: int = 8
+    num_workers: int = 6
+    worker_processes: bool = False
+    # channels shipped per image by collate: 1 = luma only, broadcast to RGB
+    # on the device
+    image_channels: int = 3
+    random_seed: int = 123
+    augment_min_points: int = 5
+    augment_min_common: int = 4
+    augment_max_attempts: int = 5
+
+
+@dataclass(frozen=True)
+class StageConfig:
+    """One curriculum stage (training is not ported yet)."""
+
+    name: str = "stage1"
+    num_epochs: int = 10
+    start_epoch: int = 0
+    lr: float = 1e-4
+    backbone_lr: float = 1e-5
+    k_lr: float = 1e-4
+    cls_lr: float = 1e-4
+    lr_decay: float = 0.5
+    patience: int = 3
+    warmup_epochs: int = 1
+    train_main: bool = True
+    train_k: bool = False
+    train_cls: bool = True
+    grad_clip: Optional[float] = None
+    loss_perm: bool = True
+    loss_ks: bool = True
+    loss_cls: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    stages: Tuple[StageConfig, ...] = ()
+    checkpoint_dir: str = "checkpoints"
+    eval_every: int = 5
+    seed: int = 123
+    bn_follows_trainability: bool = True
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data_axis: int = 1
+    edge_axis: int = 1
+
+
+@dataclass(frozen=True)
+class Config:
+    shapes: ShapeConfig = field(default_factory=ShapeConfig)
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    ngm: NGMConfig = field(default_factory=NGMConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,85 @@
+"""ResNet-18 backbone split into the three chunks the matcher consumes:
+
+  node feature maps — one per tap (default layer3: stride 16, 256 channels)
+  edge feature map  — layer4 output, stride 32, 512 channels
+  global feature    — global max-pool of layer4, 512-d
+
+Own implementation (no torchvision). Inside, tensors are NCHW as PyTorch's
+convolutions want them; the public boundary is channels-last like the JAX
+package's, so one numpy batch feeds both: images come in as (B, H, W, 3) and
+feature maps go out as (B, H_f, W_f, C). Child names equal the Flax module's
+(conv1, bn1, layer{i}_{b}, downsample_conv, downsample_bn), which is what the
+weight converter relies on. Inference only: BatchNorm uses running statistics
+(the model is kept in eval mode).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, channels, 3, stride=stride,
+                               padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        self.has_downsample = in_channels != channels or stride != 1
+        if self.has_downsample:
+            self.downsample_conv = nn.Conv2d(in_channels, channels, 1,
+                                             stride=stride, bias=False)
+            self.downsample_bn = nn.BatchNorm2d(channels, eps=1e-5,
+                                                momentum=0.1)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        if self.has_downsample:
+            x = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(y + x)
+
+
+class ResNet18Backbone(nn.Module):
+    """Truncated ResNet-18 with the matcher's output taps. `node_taps`
+    selects the stages that contribute node features."""
+
+    def __init__(self, node_taps: Tuple[str, ...] = ("layer3",),
+                 stem_channels: int = 64,
+                 stage_channels: Tuple[int, int, int, int] = (64, 128, 256,
+                                                              512),
+                 blocks_per_stage: int = 2, in_channels: int = 3):
+        super().__init__()
+        self.node_taps = tuple(node_taps)
+        self.blocks_per_stage = blocks_per_stage
+        self.conv1 = nn.Conv2d(in_channels, stem_channels, 7, stride=2,
+                               padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(stem_channels, eps=1e-5, momentum=0.1)
+        self.pool = nn.MaxPool2d(3, stride=2, padding=1)
+        prev = stem_channels
+        for i, ch in enumerate(stage_channels):
+            stride = 1 if i == 0 else 2
+            for b in range(blocks_per_stage):
+                self.add_module(f"layer{i + 1}_{b}",
+                                BasicBlock(prev, ch, stride if b == 0 else 1))
+                prev = ch
+
+    def forward(self, x: torch.Tensor):
+        """:param x: (B, H, W, 3) normalized images, channels-last
+        :return: (tuple of node feature maps (B, H_f, W_f, C), one per tap;
+                  edge map (B, H/32, W/32, C4); global feature (B, C4))"""
+        y = x.permute(0, 3, 1, 2)
+        y = self.pool(torch.relu(self.bn1(self.conv1(y))))
+        taps = {}
+        for i in range(4):
+            for b in range(self.blocks_per_stage):
+                y = getattr(self, f"layer{i + 1}_{b}")(y)
+            taps[f"layer{i + 1}"] = y
+        edges = taps["layer4"]
+        global_feat = edges.amax(dim=(2, 3))
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        return (tuple(nhwc(taps[t]) for t in self.node_taps), nhwc(edges),
+                global_feat)

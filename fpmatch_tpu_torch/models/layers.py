@@ -1,0 +1,179 @@
+"""Matcher building blocks: spline message passing, affinity layer,
+association-graph GNN layers, match classifier — batch-native nn.Modules on
+(B, N1, N2, C)-shaped association features.
+
+Parameter and child names equal the Flax modules' (the weight converter
+carries them across by name). Inference only.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..ops.assoc import assoc_aggregate_mean
+from ..ops.sinkhorn import sinkhorn_batch
+from ..ops.spline import spline_conv
+
+
+class SplineNet(nn.Module):
+    """`num_layers` SplineConv layers (dim=2, kernel 5, max aggregation) with
+    a 0.1 residual blend."""
+
+    def __init__(self, features: int = 768, kernel_size: int = 5,
+                 num_layers: int = 2):
+        super().__init__()
+        self.features, self.kernel_size = features, kernel_size
+        self.num_layers = num_layers
+        k_total = kernel_size ** 2
+        for i in range(num_layers):
+            self.register_parameter(f"conv{i}_weight", nn.Parameter(
+                torch.zeros(k_total, features, features)))
+            self.register_parameter(f"conv{i}_root", nn.Parameter(
+                torch.zeros(features, features)))
+            self.register_parameter(f"conv{i}_bias", nn.Parameter(
+                torch.zeros(features)))
+
+    def forward(self, x, src, dst, edge_attr, edge_mask, node_mask):
+        """x: (G, N, F); returns x + 0.1 * SConv(x), masked."""
+        h = x
+        for i in range(self.num_layers):
+            h = spline_conv(h, src, dst, edge_attr,
+                            getattr(self, f"conv{i}_weight"),
+                            getattr(self, f"conv{i}_root"),
+                            getattr(self, f"conv{i}_bias"),
+                            edge_mask, node_mask,
+                            kernel_size=self.kernel_size)
+            if i < self.num_layers - 1:
+                h = torch.relu(h)
+        return (x + 0.1 * h) * node_mask[..., None].to(x.dtype)
+
+
+class InnerProductAffinity(nn.Module):
+    """Global-feature-gated inner-product affinity
+    `softplus(X diag(tanh(A w)) Y^T) - 0.5`; output f32."""
+
+    def __init__(self, dim: int, global_dim: int):
+        super().__init__()
+        self.A = nn.Linear(global_dim, dim)
+
+    def forward(self, X, Y, weights, mask=None):
+        """X: (B, n1, d), Y: (B, n2, d), weights: (B, gdim)."""
+        coeff = torch.tanh(self.A(weights))
+        res = torch.einsum("bid,bjd->bij", X * coeff[:, None, :].to(X.dtype),
+                           Y)
+        res = nn.functional.softplus(res.float()) - 0.5
+        if mask is not None:
+            res = res * mask
+        return res
+
+
+class AssocGNNLayerBatched(nn.Module):
+    """One association-graph convolution whose sparse mean aggregation
+    (K^T vec(X) / rownnz) is computed by the CALLER: the UNIV serving route
+    feeds the CUDA kernel's result here. lin_l(agg) + lin_r(X) + a 2-layer
+    self MLP, plus the embedded-Sinkhorn channel."""
+
+    def __init__(self, in_features: int, out_features: int = 16,
+                 sk_channel: int = 1, sk_iter: int = 20,
+                 sk_tau: float = 0.05):
+        super().__init__()
+        self.sk_channel, self.sk_iter, self.sk_tau = sk_channel, sk_iter, \
+            sk_tau
+        self.lin_l = nn.Linear(in_features, out_features)
+        self.lin_r = nn.Linear(in_features, out_features, bias=False)
+        self.self0 = nn.Linear(in_features, out_features)
+        self.self1 = nn.Linear(out_features, out_features)
+        if sk_channel:
+            self.classifier = nn.Linear(out_features, sk_channel)
+
+    def forward(self, X, agg, kp_present, n1, n2):
+        """X, agg: (B, N1, N2, C_in); kp_present: (B, N1, N2); n1, n2: (B,)."""
+        x1 = self.lin_l(agg) + self.lin_r(X)
+        h = torch.relu(self.self1(torch.relu(self.self0(X))))
+        x1 = x1 + h
+        if self.sk_channel:
+            sk_in = self.classifier(x1)
+            chans = [sinkhorn_batch(sk_in[..., c].float(), n1, n2,
+                                    tau=self.sk_tau, max_iter=self.sk_iter,
+                                    dummy_row=True)
+                     for c in range(self.sk_channel)]
+            x1 = torch.cat([x1, torch.stack(chans, dim=-1).to(x1.dtype)],
+                           dim=-1)
+        return x1 * kp_present[..., None].to(x1.dtype)
+
+
+class AssocGNNLayer(AssocGNNLayerBatched):
+    """The bucket-scale layer: computes the factorized mean aggregation over
+    K^T itself (`ops.assoc.assoc_aggregate_mean`, plain torch ops). Same
+    parameters as `AssocGNNLayerBatched`."""
+
+    def forward(self, X, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst, kp_present,
+                e1_mask, e2_mask, n1, n2):
+        agg = assoc_aggregate_mean(X, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst,
+                                   kp_present, e1_mask, e2_mask,
+                                   transpose=True)
+        return super().forward(X, agg, kp_present, n1, n2)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over (B, C, H, W) whose train-mode statistics would be
+    masked to the valid region. Inference only here: normalization by the
+    running statistics, which does not look at the mask."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x, mask=None):
+        shp = (1, -1, 1, 1)
+        y = (x - self.running_mean.reshape(shp)) * torch.rsqrt(
+            self.running_var.reshape(shp) + self.eps)
+        return y * self.weight.reshape(shp) + self.bias.reshape(shp)
+
+
+class MatchClassifier(nn.Module):
+    """Genuine/impostor classifier: a small CNN over the masked match map
+    with masked pooling, so logits do not depend on the padding bucket."""
+
+    def __init__(self, channels: Tuple[int, ...] = (16, 32)):
+        super().__init__()
+        self.channels = tuple(channels)
+        prev = 1
+        for i, ch in enumerate(self.channels):
+            self.add_module(f"conv{i}", nn.Conv2d(prev, ch, 3, padding=1))
+            self.add_module(f"bn{i}", MaskedBatchNorm(ch))
+            prev = ch
+        self.fc = nn.Linear(prev, 1)
+
+    @staticmethod
+    def _level_mask(h, w, shift, n1, n2, dtype):
+        """(B, 1, h, w) validity of a map downscaled by 2**shift: ceil(n /
+        2**shift) rows / columns per sample."""
+        rows = torch.arange(h, device=n1.device)[None, :, None]
+        cols = torch.arange(w, device=n1.device)[None, None, :]
+        d = 1 << shift
+        vr = torch.ceil(n1 / d).to(torch.int32)[:, None, None]
+        vc = torch.ceil(n2 / d).to(torch.int32)[:, None, None]
+        return ((rows < vr) & (cols < vc)).to(dtype)[:, None]
+
+    def forward(self, match_mat, n1, n2):
+        """match_mat: (B, S1, S2); n1, n2: (B,) valid counts -> (B,) logits."""
+        x = match_mat[:, None]
+        for i in range(len(self.channels)):
+            x = torch.relu(getattr(self, f"conv{i}")(x))
+            m = self._level_mask(x.shape[2], x.shape[3], i, n1, n2, x.dtype)
+            # zero the invalid region: it would carry bias/BN constants whose
+            # interaction with the conv's zero padding depends on the bucket
+            x = getattr(self, f"bn{i}")(x, m) * m
+            x = nn.functional.max_pool2d(x, 2, stride=2)
+        m = self._level_mask(x.shape[2], x.shape[3], len(self.channels), n1,
+                             n2, x.dtype)
+        pooled = (x * m).sum(dim=(2, 3)) / torch.clamp(m.sum(dim=(2, 3)),
+                                                       min=1.0)
+        return self.fc(pooled)[..., 0]

@@ -1,0 +1,346 @@
+"""The full neural-graph-matching network (inference).
+
+  ResNet-18 features -> bilinear alignment at keypoints -> spline-conv message
+  passing per fingerprint graph -> global-gated node/edge affinities ->
+  factorized Kronecker association graph -> 3 assoc-GNN layers (mean-aggregated
+  K^T matvec + embedded Sinkhorn channel) -> Sinkhorn -> AFA-U k-prediction ->
+  soft top-k -> greedy discretization -> match classifier.
+
+Everything is fixed-shape (N_MAX / E_MAX buckets) + per-sample counts; K is
+never materialized. Two routes of the association GNN are ported:
+
+  * default (bucket scale): `AssocGNNLayer` aggregates with the plain torch
+    ops of `ops.assoc`;
+  * `univ_plan` (UNIV-scale single-pair serving): the three aggregations go
+    through `kernels.assoc_univ_v3.assoc_matvec_univ_v3` — the CUDA kernel on
+    a CUDA device — and feed `AssocGNNLayerBatched`.
+
+Options of the JAX model that are not ported yet raise NotImplementedError
+naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.config import Config
+from ..kernels.assoc_univ_v3 import (UnivPlanDev, UnivPlanV3,
+                                     assoc_matvec_univ_v3)
+from ..ops.assoc import assoc_degree
+from ..ops.feature_align import feature_align, normalize_over_channels
+from ..ops.masking import length_mask
+from ..ops.sinkhorn import sinkhorn_batch
+from ..ops.soft_topk import greedy_perm_batch, soft_topk_batch
+from ..ops.spline import edge_pseudo_coords
+from .afau import AFAUEncoder
+from .backbone import ResNet18Backbone
+from .layers import (AssocGNNLayer, AssocGNNLayerBatched,
+                     InnerProductAffinity, MatchClassifier, SplineNet)
+
+
+class PairBatch(NamedTuple):
+    """Batched padded matching problems. Leading axis B; view axis 2. Holds
+    numpy arrays on the host side (`data/`) and tensors after `.to(device)`;
+    field for field the JAX package's PairBatch."""
+
+    images: object      # (B, 2, H, W, C) float32 or uint8, channels-last
+    points: object      # (B, 2, N, 2)
+    n_nodes: object     # (B, 2) int32
+    src: object         # (B, 2, E) int32
+    dst: object         # (B, 2, E) int32
+    n_edges: object     # (B, 2) int32
+    gt_perm: object     # (B, N, N) float32
+    label: object       # (B,) float32 genuine=1/impostor=0
+    gt_k: object        # (B,) float32
+    tri: Optional[object] = None        # hyperedges: not ported yet
+    n_tris: Optional[object] = None
+    features: Optional[object] = None   # non-image pathway: not ported yet
+    row_plan: Optional[object] = None   # edge-sharded path: not ported yet
+
+    @property
+    def batch_size(self):
+        return self.images.shape[0]
+
+    def to(self, device) -> "PairBatch":
+        """Every array field as a tensor on `device`."""
+        def conv(a):
+            if a is None or not isinstance(a, (np.ndarray, torch.Tensor)):
+                return a
+            if isinstance(a, np.ndarray) and not a.flags.writeable:
+                a = a.copy()
+            return torch.as_tensor(a).to(device)
+        return PairBatch(*(conv(a) for a in self))
+
+
+def _waits(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, {item})")
+
+
+class NGMNet(nn.Module):
+    """End-to-end matcher. Call with a PairBatch of tensors.
+
+    :param univ_plan: a `kernels.assoc_univ_v3` plan (host UnivPlanV3 or
+        device UnivPlanDev) of the single pair to serve; it can also be given
+        per call (`forward(batch, univ_plan=...)`), which is how a server
+        that keeps one model answers pair after pair.
+    :param univ_bf16: run the kernel's gather/multiply from bf16 association
+        features (Ke, accumulation and result stay f32).
+    """
+
+    def __init__(self, cfg: Config, univ_plan=None, univ_bf16: bool = False):
+        super().__init__()
+        ngm, bb = cfg.ngm, cfg.backbone
+        if bb.kind != "resnet18":
+            raise _waits(f"backbone kind {bb.kind!r}",
+                         "Queue A: hyperedge/VGG/GCN/QAP extras")
+        if ngm.hyperedge:
+            raise _waits("ngm.hyperedge",
+                         "Queue A: hyperedge/VGG/GCN/QAP extras")
+        if ngm.cls_k_features:
+            raise _waits("ngm.cls_k_features",
+                         "Queue A: hyperedge/VGG/GCN/QAP extras")
+        if ngm.compute_dtype != "float32" or bb.dtype != "float32":
+            raise _waits("whole-model bfloat16 compute",
+                         "Queue A: --bf16 mixed precision")
+        self.cfg = cfg
+        self.univ_plan = univ_plan
+        self.univ_bf16 = univ_bf16
+
+        self.backbone = ResNet18Backbone(
+            node_taps=bb.node_taps, stem_channels=bb.stem_channels,
+            stage_channels=bb.stage_channels,
+            blocks_per_stage=bb.blocks_per_stage)
+        F = ngm.node_feature_dim
+        gdim = 2 * bb.stage_channels[3]
+        self.spline = SplineNet(features=F, num_layers=ngm.spline_layers)
+        self.vertex_aff = InnerProductAffinity(F, gdim)
+        self.edge_aff = InnerProductAffinity(F, gdim)
+        c_in = 1
+        for i in range(ngm.gnn_layers):
+            # AssocGNNLayer also serves the univ route through its base
+            # class's forward: one set of parameters for both routes
+            self.add_module(f"gnn_{i}", AssocGNNLayer(
+                c_in, out_features=ngm.gnn_feat[i], sk_channel=ngm.sk_emb,
+                sk_iter=ngm.sk_layer_iter, sk_tau=ngm.sk_tau))
+            c_in = ngm.gnn_feat[i] + ngm.sk_emb
+        self.classifier = nn.Linear(c_in, 1)
+        if ngm.regression:
+            self.afau = AFAUEncoder(univ_size=cfg.shapes.univ_size,
+                                    reg_hidden=ngm.afa_reg_hidden)
+        self.match_cls = MatchClassifier(channels=ngm.match_cls_channels)
+        self.register_buffer("norm_means", torch.tensor(
+            cfg.data.norm_means, dtype=torch.float32), persistent=False)
+        self.register_buffer("norm_std", torch.tensor(
+            cfg.data.norm_std, dtype=torch.float32), persistent=False)
+        self.eval()
+
+    def train(self, mode: bool = True):
+        if mode:
+            raise _waits("training (train-mode BatchNorm, losses, backward "
+                         "kernels)", "Queue A: training")
+        return super().train(False)
+
+    @torch.inference_mode()
+    def forward(self, batch: PairBatch,
+                hungarian_mask: Optional[torch.Tensor] = None,
+                univ_plan=None) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg.ngm
+        if batch.row_plan is not None:
+            raise _waits("the edge-sharded path (batch.row_plan)",
+                         "Queue A: parallel/")
+        if batch.features is not None or batch.tri is not None:
+            raise _waits("batch.features / batch.tri",
+                         "Queue A: hyperedge/VGG/GCN/QAP extras")
+        B, two, H, W, C_in = batch.images.shape
+        N = batch.points.shape[2]
+        E = batch.src.shape[2]
+        dev = batch.points.device
+        rescale_max = float(max(self.cfg.data.rescale))
+
+        node_mask = length_mask(batch.n_nodes.reshape(B * 2), N)
+        edge_mask = length_mask(batch.n_edges.reshape(B * 2), E)
+        pts = batch.points.reshape(B * 2, N, 2)
+
+        # ---- backbone over all images at once ----------------------------
+        imgs = batch.images.reshape(B * 2, H, W, C_in)
+        if imgs.dtype == torch.uint8:
+            # raw uint8, possibly single-channel luma: normalize here; a
+            # (..., 1) input broadcasts against the per-channel stats to RGB
+            imgs = (imgs.float() / 255.0 - self.norm_means) / self.norm_std
+        elif C_in == 1:
+            imgs = imgs.expand(-1, -1, -1, 3)
+        node_maps, edges_map, global_feat = self.backbone(imgs.float())
+        node_maps = [normalize_over_channels(m.float()) for m in node_maps]
+        edges_map = normalize_over_channels(edges_map.float())
+        global_feat = global_feat.float()
+
+        # ---- bilinear alignment at keypoints -----------------------------
+        rescale = self.cfg.data.rescale
+        aligned = [feature_align(m, pts, rescale) for m in node_maps]
+        aligned.append(feature_align(edges_map, pts, rescale))
+        node_feat = torch.cat(aligned, dim=-1) * node_mask[..., None]
+
+        # ---- spline-conv message passing per graph -----------------------
+        src = batch.src.reshape(B * 2, E)
+        dst = batch.dst.reshape(B * 2, E)
+        pseudo = edge_pseudo_coords(pts, src, dst, rescale_max)
+        x = self.spline(node_feat, src, dst, pseudo, edge_mask, node_mask)
+
+        # ---- edge features + global weights ------------------------------
+        Fd = x.shape[-1]
+        take = lambda idx: torch.gather(
+            x, 1, idx.long()[..., None].expand(-1, -1, Fd))
+        edge_feat = (take(src) - take(dst)) * edge_mask[..., None]
+
+        g = global_feat.reshape(B, 2, -1)
+        global_w = normalize_over_channels(
+            torch.cat([g[:, 0], g[:, 1]], dim=-1))
+
+        x = x.reshape(B, 2, N, -1)
+        edge_feat = edge_feat.reshape(B, 2, E, -1)
+        node_mask = node_mask.reshape(B, 2, N)
+        edge_mask = edge_mask.reshape(B, 2, E)
+        n1, n2 = batch.n_nodes[:, 0], batch.n_nodes[:, 1]
+
+        vmask = node_mask[:, 0, :, None] & node_mask[:, 1, None, :]
+        emask = edge_mask[:, 0, :, None] & edge_mask[:, 1, None, :]
+
+        # ---- affinities ---------------------------------------------------
+        Kp = self.vertex_aff(x[:, 0], x[:, 1], global_w, mask=vmask)
+        Ke = 0.5 * self.edge_aff(edge_feat[:, 0], edge_feat[:, 1], global_w,
+                                 mask=emask)
+
+        # ---- association-graph GNN ---------------------------------------
+        emb = Kp[..., None] if cfg.first_order else torch.ones(
+            (B, N, N, 1), dtype=Kp.dtype, device=dev)
+        kp_present = vmask.to(Kp.dtype)
+        plan = univ_plan if univ_plan is not None else self.univ_plan
+        if plan is not None:
+            # ---- UNIV-scale single-pair serving route ---------------------
+            if B != 1:
+                raise ValueError("univ_plan is a single-pair path (B == 1)")
+            if isinstance(plan, UnivPlanV3) or (
+                    isinstance(plan, UnivPlanDev)
+                    and plan.in1_slot.device != dev):
+                plan = plan.to(dev)
+            deg = assoc_degree(kp_present, edge_mask[:, 0], edge_mask[:, 1],
+                               batch.src[:, 0], batch.dst[:, 0],
+                               batch.src[:, 1], batch.dst[:, 1], N, N,
+                               transpose=True)
+            deg = torch.clamp(deg, min=1.0)[..., None]
+            for i in range(cfg.gnn_layers):
+                xin = emb[0].bfloat16() if self.univ_bf16 else emb[0]
+                y = assoc_matvec_univ_v3(xin, Kp[0], Ke[0], plan)
+                layer = getattr(self, f"gnn_{i}")
+                emb = AssocGNNLayerBatched.forward(layer, emb, y[None] / deg,
+                                                   kp_present, n1, n2)
+        else:
+            for i in range(cfg.gnn_layers):
+                emb = getattr(self, f"gnn_{i}")(
+                    emb, Kp, Ke, batch.src[:, 0], batch.dst[:, 0],
+                    batch.src[:, 1], batch.dst[:, 1], kp_present,
+                    edge_mask[:, 0], edge_mask[:, 1], n1, n2)
+
+        # ---- scores + Sinkhorn -------------------------------------------
+        s = self.classifier(emb)[..., 0]                    # (B, N, N)
+        ss = sinkhorn_batch(s, n1, n2, tau=cfg.sk_tau, max_iter=cfg.sk_iter,
+                            dummy_row=True)
+
+        min_pts = torch.minimum(n1, n2).float()
+        supervised_ks = batch.gt_k / torch.clamp(min_pts, min=1.0)
+
+        # ---- k prediction (AFA-U) ----------------------------------------
+        ks = self.afau(ss, n1, n2) if cfg.regression else supervised_ks
+
+        # ---- soft top-k + discretization ---------------------------------
+        ss_out = soft_topk_batch(ss, ks * min_pts, n1, n2, tau=cfg.sk_tau,
+                                 max_iter=cfg.sk_iter,
+                                 extra_iter=cfg.topk_extra_iter)
+        rank = ss_out if hungarian_mask is None else hungarian_mask * ss_out
+        x_perm = greedy_perm_batch(rank, ks * min_pts, n1, n2)
+
+        # ---- match classification ----------------------------------------
+        cls_logits = self.match_cls(s * x_perm, n1, n2)
+        cls_prob = torch.sigmoid(cls_logits)
+
+        # ---- auxiliary losses --------------------------------------------
+        label = batch.label
+        cls_loss = torch.mean(
+            torch.clamp(cls_logits, min=0) - cls_logits * label
+            + torch.log1p(torch.exp(-torch.abs(cls_logits))))
+        if cfg.regression:
+            ks_loss = torch.mean((ks - supervised_ks) ** 2) * cfg.k_factor
+            ks_error = torch.mean(torch.abs(ks * min_pts - batch.gt_k))
+        else:
+            ks_loss = torch.zeros((), device=dev)
+            ks_error = torch.zeros((), device=dev)
+
+        return {
+            "ds_mat": ss_out,
+            "raw_scores": s,
+            "sinkhorn": ss,
+            "perm_mat": x_perm,
+            "Kp": Kp,
+            "ks_loss": ks_loss,
+            "ks_error": ks_error,
+            "cls_loss": cls_loss,
+            "cls_logits": cls_logits,
+            "cls_prob": cls_prob,
+            "k_prob": ks,
+        }
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Re-initialise every parameter from a seeded torch.Generator, with the
+    distributions the JAX package's modules use at init: fan-in-scaled normal
+    for Linear/Conv weights, fan-in-scaled uniform for the spline kernels,
+    U(-10, 10) for the AFA-U score-mixing MLPs, zero biases, unit norm
+    scales, fresh BatchNorm statistics."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def fill(p, sample):
+        with torch.no_grad():
+            p.copy_(sample(torch.empty(p.shape, dtype=torch.float32)))
+
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.startswith("mix"):
+            fill(p, lambda t: t.uniform_(-10.0, 10.0, generator=gen))
+        elif leaf.endswith("_scale") or (leaf == "weight" and p.dim() == 1):
+            nn.init.ones_(p)
+        elif leaf == "bias" or leaf.endswith("_bias"):
+            nn.init.zeros_(p)
+        elif leaf.startswith("conv") and leaf.endswith(("_weight", "_root")):
+            fan_in = p.shape[-2] * (p.shape[0] if p.dim() == 3 else 1)
+            lim = (1.0 / fan_in) ** 0.5
+            fill(p, lambda t: t.uniform_(-lim, lim, generator=gen))
+        else:                                   # Linear / Conv2d weight
+            fan_in = p[0].numel()
+            std = (1.0 / fan_in) ** 0.5
+            fill(p, lambda t: t.normal_(0.0, std, generator=gen))
+    for name, b in model.named_buffers():
+        if name.endswith("running_mean"):
+            b.zero_()
+        elif name.endswith("running_var"):
+            b.fill_(1.0)
+    return model
+
+
+def build_model(cfg: Config, device="cuda", seed: int = 0, state_dict=None,
+                univ_plan=None, univ_bf16: bool = False) -> NGMNet:
+    """An NGMNet on `device` (default `cuda`; raises when that is asked for
+    and there is no GPU), with weights from `state_dict` or, without one,
+    initialised from `seed`."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    model = NGMNet(cfg, univ_plan=univ_plan, univ_bf16=univ_bf16)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    else:
+        init_weights(model, seed)
+    return model.to(dev)

@@ -1,0 +1,139 @@
+"""Factorized association-graph sparse ops in plain PyTorch, batch-native.
+
+The FGM factorization of the association affinity matrix is
+
+    K = diag(vec(Kp)) + (G2 (x) G1) diag(vec(Ke)) (H2 (x) H1)^T
+
+and K never needs to be materialized. For X in R^{n1 x n2 x C},
+
+    (K vec X)[i1,i2] = Kp[i1,i2] X[i1,i2]
+                     + sum_{e1,e2} 1[src1(e1)=i1] 1[src2(e2)=i2] Ke[e1,e2]
+                       X[dst1(e1), dst2(e2)]
+
+i.e. gather X by (dst1, dst2), scale by Ke, then two separable segment sums
+(over e2 into src2, over e1 into src1): `index_select` + `index_add_`. The
+transposed product K^T vec X (what the model uses) swaps the src/dst roles.
+
+Every function takes a leading batch axis B and flattens it into the gather
+and scatter indices; padded edge slots alias node 0 and MUST carry Ke == 0.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _batch_offsets(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, E) per-sample indices -> (B*E,) indices into a (B*n, ...) array."""
+    B = idx.shape[0]
+    off = torch.arange(B, device=idx.device)[:, None] * n
+    return (idx.long() + off).reshape(-1)
+
+
+def _matvec_edges(X, Ke, out1, in1, out2, in2):
+    """sum over the given edge lists, without the Kp term: (B, N1, N2, C)
+    float32. X (B, N1, N2, C); Ke (B, E1, E2); out*/in* (B, E*)."""
+    B, n1, n2, C = X.shape
+    e1, e2 = Ke.shape[1], Ke.shape[2]
+    # gather rows then columns: W[b, e1, e2, c] = X[b, in1[e1], in2[e2], c]
+    rows = X.reshape(B * n1, n2, C).index_select(0, _batch_offsets(in1, n1))
+    rows = rows.reshape(B, e1, n2, C).transpose(1, 2).reshape(B * n2, e1, C)
+    W = rows.index_select(0, _batch_offsets(in2, n2))      # (B*E2, E1, C)
+    W = W * Ke.transpose(1, 2).reshape(B * e2, e1, 1).to(W.dtype)
+    # scatter-add, separable: over e2 into out2, then over e1 into out1
+    T = torch.zeros((B * n2, e1, C), dtype=torch.float32, device=X.device)
+    T.index_add_(0, _batch_offsets(out2, n2), W.float())
+    T = T.reshape(B, n2, e1, C).transpose(1, 2).reshape(B * e1, n2, C)
+    Y = torch.zeros((B * n1, n2, C), dtype=torch.float32, device=X.device)
+    Y.index_add_(0, _batch_offsets(out1, n1), T)
+    return Y.reshape(B, n1, n2, C)
+
+
+def _roles(src1, dst1, src2, dst2, transpose):
+    """(out1, in1, out2, in2): Y[out] += Ke X[in]."""
+    if transpose:
+        return dst1, src1, dst2, src2
+    return src1, dst1, src2, dst2
+
+
+def assoc_matvec(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
+                 src1, dst1, src2, dst2,
+                 transpose: bool = False) -> torch.Tensor:
+    """K vec(X) (or K^T vec(X)) without materializing K.
+
+    :param X:  (B, N1, N2, C) association node features (f32 or bf16: the
+               gathers and the Ke multiply run in X's dtype, both segment
+               sums accumulate f32)
+    :param Kp: (B, N1, N2) node affinities; zero-padded
+    :param Ke: (B, E1, E2) edge affinities; zero on padded edge slots
+    :param src1, dst1: (B, E1) graph-1 edge endpoints; src2, dst2: (B, E2)
+    :return: (B, N1, N2, C) float32
+    """
+    out1, in1, out2, in2 = _roles(src1, dst1, src2, dst2, transpose)
+    Y = _matvec_edges(X, Ke, out1, in1, out2, in2)
+    return Y + Kp[..., None] * X.float()
+
+
+def assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
+                         transpose: bool = False,
+                         chunk: int = 256) -> torch.Tensor:
+    """The same product with the E1 axis processed in fixed-size chunks, so
+    the live intermediate is (chunk, E2, C) per sample instead of the whole
+    (E1, E2, C) tensor."""
+    out1, in1, out2, in2 = _roles(src1, dst1, src2, dst2, transpose)
+    Y = Kp[..., None] * X.float()
+    for lo in range(0, Ke.shape[1], chunk):
+        hi = lo + chunk
+        Y = Y + _matvec_edges(X, Ke[:, lo:hi], out1[:, lo:hi], in1[:, lo:hi],
+                              out2, in2)
+    return Y
+
+
+# association-edge count (per sample) from which the chunked form is used
+CHUNKED_NNZ_THRESHOLD = 1_000_000
+CHUNK_E1 = 256
+
+
+def assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
+                      transpose: bool = False):
+    """Static-shape dispatch between the one-shot form (bucket scale) and
+    the chunked bounded-memory form (UNIV scale)."""
+    if Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD:
+        return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
+                                    transpose=transpose, chunk=CHUNK_E1)
+    return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
+                        transpose=transpose)
+
+
+def assoc_degree(Kp_present: torch.Tensor, e1_mask, e2_mask,
+                 src1, dst1, src2, dst2, n1: int, n2: int,
+                 transpose: bool = False) -> torch.Tensor:
+    """Number of stored entries per row of K (or K^T), the normalizer of the
+    mean aggregation: deg(i1,i2) = indeg1(i1) * indeg2(i2) + 1 on the valid
+    block.
+
+    :param Kp_present: (B, N1, N2) 1.0 where a diagonal entry exists
+    :param e1_mask, e2_mask: (B, E) validity of padded edge slots
+    :return: (B, N1, N2) float32
+    """
+    tgt1 = src1 if transpose else dst1
+    tgt2 = src2 if transpose else dst2
+    B = Kp_present.shape[0]
+    dev = Kp_present.device
+    deg1 = torch.zeros((B * n1,), dtype=torch.float32, device=dev)
+    deg1.index_add_(0, _batch_offsets(tgt1, n1), e1_mask.float().reshape(-1))
+    deg2 = torch.zeros((B * n2,), dtype=torch.float32, device=dev)
+    deg2.index_add_(0, _batch_offsets(tgt2, n2), e2_mask.float().reshape(-1))
+    return (deg1.reshape(B, n1, 1) * deg2.reshape(B, 1, n2)
+            + Kp_present.float())
+
+
+def assoc_aggregate_mean(X, Kp, Ke, src1, dst1, src2, dst2,
+                         Kp_present, e1_mask, e2_mask,
+                         transpose: bool = True):
+    """Mean-aggregated sparse propagation: row-wise (K^T x) / rownnz(K^T)."""
+    n1, n2 = X.shape[1], X.shape[2]
+    y = assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
+                          transpose=transpose)
+    deg = assoc_degree(Kp_present, e1_mask, e2_mask, src1, dst1, src2, dst2,
+                       n1, n2, transpose=transpose)
+    return y / torch.clamp(deg, min=1.0)[..., None]

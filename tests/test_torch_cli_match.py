@@ -1,0 +1,279 @@
+"""The port's serving CLI (`fpmatch_tpu_torch.cli.match`) on the CPU against
+the JAX package's, on two written images + .tsv keypoint files, with the
+Flax-initialised weights carried across as a checkpoint file. Also: package
+hygiene (the port and chip_smoke.py import no JAX and nothing of the JAX
+package)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from fpmatch_tpu.cli import match as j_match
+from fpmatch_tpu.models.ngm import NGMNet as JNet, PairBatch as JPairBatch
+from fpmatch_tpu_torch.cli import match as t_match
+from fpmatch_tpu_torch.cli import model_config_from_args
+from fpmatch_tpu_torch.convert import from_flax_variables
+from fpmatch_tpu_torch.data import pipeline as t_pipeline
+from test_torch_utils import np_tree
+
+REPO = Path(__file__).resolve().parents[1]
+SHAPE_FLAGS = ["--n-max", "24", "--e-max", "160", "--univ", "32"]
+
+
+def _write_tsv(path, pts):
+    with open(path, "w") as f:
+        f.write("x\ty\n")
+        for x, y in pts:
+            f.write(f"{x:.3f}\t{y:.3f}\n")
+
+
+@pytest.fixture(scope="module")
+def pair_files(tmp_path_factory):
+    """Two 300x280 grayscale-as-RGB fingerprint-like images (so the resize
+    + centre crop of `standardize` does real work) with 20 / 17 keypoints;
+    a few keypoints fall outside the crop and must be dropped."""
+    cv2 = pytest.importorskip("cv2")
+    d = tmp_path_factory.mktemp("pair")
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:280, 0:300]
+    files = []
+    base = rng.uniform([10, 10], [290, 270], size=(20, 2))
+    for i, n in enumerate((20, 17)):
+        ridges = 127 + 100 * np.sin(0.35 * xx + 0.2 * yy * (i + 1))
+        img = np.clip(ridges + rng.normal(0, 12, ridges.shape), 0,
+                      255).astype(np.uint8)
+        png = str(d / f"f{i}.png")
+        cv2.imwrite(png, np.stack([img] * 3, -1))
+        pts = base[:n] + rng.normal(0, 1.0, (n, 2))
+        tsv = str(d / f"f{i}.tsv")
+        _write_tsv(tsv, pts)
+        files += [png, tsv]
+    return d, files
+
+
+def _argv(files, extra=()):
+    png1, tsv1, png2, tsv2 = files
+    return [png1, png2, "--kpts1", tsv1, "--kpts2", tsv2, *SHAPE_FLAGS,
+            *extra]
+
+
+@pytest.fixture(scope="module")
+def converted_checkpoint(pair_files):
+    """The weights the JAX CLI scores with when it finds no checkpoint
+    (`model.init(PRNGKey(0), batch)`), carried across into the port's
+    checkpoint format: `<dir>/<name>.pt` + checkpoint.json."""
+    d, files = pair_files
+    args = t_match.build_parser().parse_args(_argv(files))
+    tcfg = model_config_from_args(args)
+    (i1, P1), (i2, P2) = t_match.read_pair(args)
+    batch, _ = t_match.build_request(i1, P1, i2, P2, tcfg)
+    jargs = j_match.argparse.Namespace(**vars(args))
+    from fpmatch_tpu.cli import model_config_from_args as j_cfg_from_args
+    jcfg = j_cfg_from_args(jargs)
+    v = JNet(jcfg).init(jax.random.PRNGKey(0), JPairBatch(*batch[:9]),
+                        train=False)
+    ckpt = d / "ckpt"
+    ckpt.mkdir()
+    torch.save(from_flax_variables(np_tree(v), tcfg), ckpt / "flax0.pt")
+    (ckpt / "checkpoint.json").write_text(json.dumps({"latest": "flax0"}))
+    return str(ckpt)
+
+
+def _run(main, argv, capsys):
+    capsys.readouterr()
+    rc = main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    return rc, json.loads(out[-1])
+
+
+def test_cli_match_same_json_as_jax_cli(pair_files, converted_checkpoint,
+                                        capsys):
+    """Full model width, bucket route, greedy discretization, CPU. Flax's
+    own init keeps AFA-U's U(-10, 10) score mixing and tau = 0.01 (see
+    test_torch_ngm), so the probabilities are held to 5e-3 and the match
+    list to the pairs both runs rank well apart; keys, counts and kinds are
+    exact."""
+    d, files = pair_files
+    rc_j, want = _run(j_match.main, _argv(files, [
+        "--checkpoint-dir", str(d / "no_such_dir"), "--threshold", "0.3"]),
+        capsys)
+    rc_t, got = _run(t_match.main, _argv(files, [
+        "--checkpoint-dir", converted_checkpoint, "--threshold", "0.3",
+        "--device", "cpu"]), capsys)
+    assert rc_j == rc_t == 0
+    assert list(got) == list(want)              # same keys, same order
+    assert got["checkpoint"] == "flax0" and want["checkpoint"] is None
+    for k in ("score_kind", "n_kpts", "threshold", "genuine"):
+        assert got[k] == want[k], k
+    assert got["n_kpts"][0] < 20            # the crop dropped keypoints
+    for k in ("score", "cls_prob", "k_prob"):
+        assert abs(got[k] - want[k]) <= 5e-3, (k, got[k], want[k])
+    assert abs(got["k_pred"] - want["k_pred"]) <= 5e-3 * min(got["n_kpts"])
+    assert abs(got["n_matched"] - want["n_matched"]) <= 1
+    assert got["n_matched"] == len(got["matches"])
+    common = {tuple(m) for m in got["matches"]} & {tuple(m) for m in
+                                                   want["matches"]}
+    assert len(common) >= want["n_matched"] - 2
+
+
+def test_cli_match_univ_route_and_options(pair_files, converted_checkpoint,
+                                          capsys):
+    """`--univ-kernel` sends the aggregations through kernels.assoc_univ_v3
+    (its plain version on the CPU): same verdict as the bucket route of the
+    same weights. `--score` picks the score, a named checkpoint is reported.
+    """
+    d, files = pair_files
+    common = ["--checkpoint-dir", converted_checkpoint, "--device", "cpu"]
+    _, base = _run(t_match.main, _argv(files, common), capsys)
+    rc, univ = _run(t_match.main, _argv(files, common + [
+        "--univ-kernel", "--checkpoint", "flax0", "--score", "k"]), capsys)
+    assert rc == 0 and univ["checkpoint"] == "flax0"
+    assert univ["score_kind"] == "k" and univ["score"] == univ["k_prob"]
+    assert "genuine" not in univ
+    for k in ("cls_prob", "k_prob"):
+        assert abs(univ[k] - base[k]) <= 5e-3, k
+    assert abs(univ["n_matched"] - base["n_matched"]) <= 1
+    assert abs(base["score"] - base["cls_prob"] * base["k_prob"]) <= 2e-6
+
+
+def test_cli_match_seeded_init_without_checkpoint(pair_files, capsys):
+    d, files = pair_files
+    argv = _argv(files, ["--checkpoint-dir", str(d / "none"), "--device",
+                         "cpu", "--seed", "5"])
+    _, a = _run(t_match.main, argv, capsys)
+    _, b = _run(t_match.main, argv, capsys)
+    assert a == b and a["checkpoint"] is None
+    assert 0.0 <= a["k_prob"] <= 1.0 and 0.0 <= a["cls_prob"] <= 1.0
+    assert a["n_matched"] == min(round(a["k_prob"] * min(a["n_kpts"])),
+                                 min(a["n_kpts"]))
+
+
+def test_cli_match_errors(pair_files, tmp_path, capsys):
+    d, files = pair_files
+    png1, tsv1, png2, tsv2 = files
+    cpu = ["--device", "cpu", *SHAPE_FLAGS]
+    # every keypoint outside the 240x320 crop -> error JSON, exit code 2
+    far = str(tmp_path / "far.tsv")
+    _write_tsv(far, [(150.0, 2.0), (140.0, 278.0)])
+    rc, out = _run(t_match.main, [png1, png2, "--kpts1", far, "--kpts2",
+                                  tsv2, *cpu], capsys)
+    assert rc == 2 and "error" in out and out["n_kpts"][0] == 0
+    empty = str(tmp_path / "empty.tsv")
+    _write_tsv(empty, [])
+    rc, out = _run(t_match.main, [png1, png2, "--kpts1", empty, "--kpts2",
+                                  tsv2, *cpu], capsys)
+    assert rc == 2 and out["error"] == "no keypoints found"
+    # routes that wait for later work name their ROADMAP item
+    for extra in (["--kpts1", tsv1], ["--kpts1", tsv1, "--kpts2", tsv2,
+                                      "--discretize", "hungarian"],
+                  ["--kpts1", tsv1, "--kpts2", tsv2, "--bf16"],
+                  ["--kpts1", tsv1, "--kpts2", tsv2, "--viz", "x.png"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_match.main([png1, png2, *extra, *cpu])
+    with pytest.raises(FileNotFoundError):
+        t_match.main([str(tmp_path / "nope.png"), png2, "--kpts1", tsv1,
+                      "--kpts2", tsv2, *cpu])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            t_match.main([png1, png2, "--kpts1", tsv1, "--kpts2", tsv2,
+                          *SHAPE_FLAGS])          # default device is cuda
+
+
+def test_read_keypoints_formats(tmp_path):
+    from fpmatch_tpu.data.dataset import read_keypoints as j_read
+    from fpmatch_tpu_torch.data.dataset import read_keypoints as t_read
+
+    (tmp_path / "a.tsv").write_text("x\ty\tid\n1.5\t2\t4\n3\t4\t-2\nbad\t1\t0\n")
+    (tmp_path / "b.csv").write_text("x,y\n1,2\n3.25,4\n")
+    (tmp_path / "c.txt").write_text("1,2\n\nnot a point\n5,6.5\n")
+    for name in ("a.tsv", "b.csv", "c.txt"):
+        assert t_read(tmp_path / name, "q", "u") == \
+            j_read(tmp_path / name, "q", "u")
+
+
+def test_collate_and_gray_conversion_match_jax_pipeline(rng):
+    """Collation needs no cv2 in the port: its RGB -> luma arithmetic equals
+    cv2's, and the padded batch equals the JAX package's field by field."""
+    cv2 = pytest.importorskip("cv2")
+    from fpmatch_tpu.core.config import Config as JConfig, DataConfig as JData
+    from fpmatch_tpu.data import pipeline as j_pipeline
+    from fpmatch_tpu_torch.core.config import Config, DataConfig
+
+    img = rng.integers(0, 256, size=(240, 320, 3), dtype=np.uint8)
+    assert np.array_equal(t_pipeline.rgb_to_gray(img),
+                          cv2.cvtColor(img, cv2.COLOR_RGB2GRAY))
+    P1 = rng.uniform(10, 200, size=(9, 2)).astype(np.float32)
+    P2 = rng.uniform(10, 200, size=(7, 2)).astype(np.float32)
+    e = (np.array([0, 1, 2], np.int32), np.array([1, 2, 0], np.int32))
+    kw = dict(images=(img, img[::-1].copy()), points=(P1, P2), edges=(e, e),
+              perm=np.eye(9, 7, dtype=np.float32), label=1.0, cls=("a", "b"))
+    for ch in (1, 3):
+        want = j_pipeline.collate([j_pipeline.PairSample(**kw)],
+                                  JConfig(data=JData(image_channels=ch)))
+        got = t_pipeline.collate([t_pipeline.PairSample(**kw)],
+                                 Config(data=DataConfig(image_channels=ch)))
+        for name, a, b in zip(want._fields, want, got):
+            if a is None:
+                assert b is None
+            else:
+                assert np.array_equal(a, b) and a.dtype == b.dtype, name
+    gray2d = t_pipeline.collate(
+        [t_pipeline.PairSample(**{**kw, "images": (img[..., 0],
+                                                    img[..., 1])})],
+        Config(data=DataConfig(image_channels=1)))
+    assert gray2d.images.shape == (1, 2, 240, 320, 1)
+
+
+# ----------------------------------------------------------------- hygiene
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of fpmatch_tpu_torch, imported in a fresh interpreter,
+    leaves jax / flax / optax / orbax / fpmatch_tpu out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fpmatch_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'fpmatch_tpu'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_name_no_jax():
+    """No source line of the port or of chip_smoke.py imports jax, flax,
+    optax, orbax or the JAX package."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|orbax|fpmatch_tpu)"
+                     r"(\.|\s|$)", re.M)
+    files = list((REPO / "fpmatch_tpu_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        assert not pat.search(f.read_text()), f
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert "jax" not in smoke.lower() and "flax" not in smoke.lower()
+    assert not re.search(r"fpmatch_tpu(?!_torch)", smoke)
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       cwd=str(REPO), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,0 +1,98 @@
+"""Shared helpers of the tests that hold the PyTorch port (fpmatch_tpu_torch)
+against the JAX package (fpmatch_tpu) on the CPU: inputs are made with numpy
+from a seed and handed to both; weights are initialised by Flax and carried
+across with `fpmatch_tpu_torch.convert`."""
+import dataclasses
+
+import numpy as np
+import torch
+
+import jax
+
+from fpmatch_tpu.core import config as jc
+from fpmatch_tpu_torch.convert import flax_tree_to_state_dict
+from fpmatch_tpu_torch.core import config as tc
+
+
+def tiny_jax_config(n_max=12, e_max=64, univ=16, **ngm_kw):
+    """`__graft_entry__._tiny_config`-sized model: micro ResNet (8/16 wide,
+    1 block per stage), 32-wide graph features, few Sinkhorn iterations."""
+    return jc.Config(
+        shapes=jc.ShapeConfig(n_max=n_max, e_max=e_max, t_max=16,
+                              univ_size=univ),
+        backbone=jc.BackboneConfig(stem_channels=8,
+                                   stage_channels=(8, 8, 16, 16),
+                                   blocks_per_stage=1),
+        ngm=dataclasses.replace(
+            jc.NGMConfig(), node_feature_dim=32, global_state_dim=32,
+            gnn_feat=(8, 8, 8), sk_iter=4, sk_layer_iter=4,
+            topk_extra_iter=2, afa_reg_hidden=4, **ngm_kw))
+
+
+def to_torch_config(cfg) -> tc.Config:
+    """The port's Config with the same field values as a JAX-package one."""
+    return tc.Config(
+        shapes=tc.ShapeConfig(**dataclasses.asdict(cfg.shapes)),
+        backbone=tc.BackboneConfig(**dataclasses.asdict(cfg.backbone)),
+        ngm=tc.NGMConfig(**dataclasses.asdict(cfg.ngm)),
+        data=tc.DataConfig(**dataclasses.asdict(cfg.data)))
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def load_into(module, params, batch_stats=None):
+    sd = flax_tree_to_state_dict(np_tree(params), np_tree(batch_stats or {}))
+    for k, v in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = v
+    module.load_state_dict(sd)
+    return module.eval()
+
+
+def randomize_batch_stats(variables, seed=0):
+    """Fresh Flax BatchNorm statistics are mean 0 / var 1, which would hide a
+    swapped or dropped statistic: give every one a random value."""
+    rng = np.random.default_rng(seed)
+    v = np_tree(variables)
+
+    def rnd(path, a):
+        leaf = path[-1].key
+        if leaf == "mean":
+            return rng.normal(0, 0.1, a.shape).astype(np.float32)
+        return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+
+    stats = jax.tree_util.tree_map_with_path(rnd, v["batch_stats"])
+    return {"params": v["params"], "batch_stats": stats}
+
+
+def damp_afau_mixing(variables, factor=0.1):
+    """The AFA-U score-mixing MLPs initialise to U(-10, 10): attention
+    logits in the hundreds, i.e. a near-hard argmax whose winner flips on
+    float32 rounding noise. Parity of the two implementations is a statement
+    about the arithmetic, so the whole-model tests scale these four tensors
+    down to a well-conditioned range (the isolated AFA-U test keeps them)."""
+    v = np_tree(variables)
+    for blk in ("row_block", "col_block"):
+        mha = v["params"]["afau"][blk]["mha"]
+        for k in list(mha):
+            mha[k] = mha[k] * factor
+    return v
+
+
+def t2n(x):
+    return x.detach().cpu().numpy()
+
+
+def test_config_trees_have_the_same_fields_and_defaults():
+    """The port keeps its own copy of the config tree; the converter, the
+    CLIs and these tests rely on equal field names and defaults."""
+    for name in ("ShapeConfig", "BackboneConfig", "NGMConfig", "DataConfig",
+                 "StageConfig", "TrainConfig", "MeshConfig"):
+        assert dataclasses.asdict(getattr(jc, name)()) == \
+            dataclasses.asdict(getattr(tc, name)()), name
+    assert dataclasses.asdict(jc.Config()) == dataclasses.asdict(tc.Config())
+    cfg = tiny_jax_config(sk_tau=0.05)
+    assert dataclasses.asdict(to_torch_config(cfg))["ngm"] == \
+        dataclasses.asdict(cfg)["ngm"]
