@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and evaluation paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
-    python3 chip_smoke.py --profile  # + a torch.profiler table of one request
+    python3 chip_smoke.py --profile  # + torch.profiler tables of one request
+                                     #   and of one evaluate batch
 
 Phases (each prints its own lines; any failure exits non-zero):
 
   1. device   card name + power limit, torch / CUDA / nvcc versions
   2. build    every kernel source under fpmatch_tpu_torch/kernels/csrc/
   3. kernels  assoc_univ_v3 (CUDA) against its plain PyTorch version and
-              against ops.assoc (no plan) on the card, at the serving
-              shapes; times by CUDA events
+              against the plain ops of ops.assoc (no plan) on the card, at
+              the serving shapes; assoc_bucket and assoc_large (CUDA) against
+              theirs at B=8 / N=64 / E=384 and B=2 / N=256 / E=1536; times by
+              CUDA events
   4. serve    UNIV route (n_max=600, e_max=3840, univ=600) at full model
               width, a few requests through cli.match.match_arrays
   5. parity   one UNIV request against the port's own CPU run (plain kernel
               version), TF32 off
   6. serve    bucket route (n_max=64, e_max=384), 3 requests
+  7. evaluate a synthetic test split written to a temporary directory, then
+              cli.evaluate.evaluate_loader at full width over batches of 8
+              (n_max=64, e_max=384) through the prefetching loader
+  8. parity   the prefetched batches against unprefetched ones (bit for
+              bit), one evaluate batch against the port's own CPU run
+  9. evaluate the same function over batches of 2 at n_max=256, e_max=1536,
+              where the aggregations go through assoc_large
 
 Weights are initialised from a seed, images and keypoints are made from a
-seed; nothing is read from disk but the package itself. The second-to-last
-lines carry the per-kernel JSON and the card; the last line is
-{"ok": true, "device": {...}}.
+seed; nothing is read from disk but the package itself and what the script
+wrote. The second-to-last lines carry the per-kernel JSON and the card; the
+last line is {"ok": true, "device": {...}}.
 """
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,13 +49,19 @@ if not torch.cuda.is_available():
           "needs an NVIDIA GPU", file=sys.stderr)
     sys.exit(1)
 
+from fpmatch_tpu_torch.cli import evaluate as cli_evaluate
 from fpmatch_tpu_torch.cli import model_config_from_args
 from fpmatch_tpu_torch.cli.match import build_parser, match_arrays
 from fpmatch_tpu_torch.core.build_graphs import build_edges
+from fpmatch_tpu_torch.data.benchmark import make_benchmark
+from fpmatch_tpu_torch.data.generator import generate_synthetic_dataset
+from fpmatch_tpu_torch.data.pipeline import DataLoader, PairDataset
 from fpmatch_tpu_torch.kernels import _build
+from fpmatch_tpu_torch.kernels import assoc_bucket as k23
 from fpmatch_tpu_torch.kernels import assoc_univ_v3 as k1
 from fpmatch_tpu_torch.models.ngm import build_model
-from fpmatch_tpu_torch.ops.assoc import assoc_matvec_auto
+from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_matvec,
+                                         assoc_matvec_chunked)
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -59,6 +79,24 @@ def say(*a):
 def fail(msg):
     say(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0 (done just before a path is driven)."""
+    for counts in (k1.LAUNCHES, k23.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    return {**k1.LAUNCHES, **k23.LAUNCHES}
+
+
+def restore_counts(saved):
+    """Launches made to compare or to profile do not count."""
+    for counts in (k1.LAUNCHES, k23.LAUNCHES):
+        for k in counts:
+            counts[k] = saved[k]
 
 
 def sh(cmd):
@@ -104,7 +142,9 @@ def relerr(a, b):
 
 def time_ms(fn, reps=20, flush=None):
     """Median CUDA-event time of one call; `flush` (a big tensor) is
-    overwritten before each call so the call finds the L2 cache cold."""
+    overwritten before each call so the call finds the L2 cache cold. The
+    first event is recorded behind the flush, so the host's time to reach the
+    launch passes while the flush runs and is not in the reading."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -144,8 +184,9 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
     plain = k1.assoc_matvec_univ_v3_plain(X, Kp, Ke, plan)
     pad = lambda a: torch.from_numpy(np.pad(a, (0, E - len(a)))
                                      ).to(DEV)[None]
-    noplan = assoc_matvec_auto(X[None], Kp[None], Ke[None], pad(s1), pad(d1),
-                               pad(s2), pad(d2), transpose=transpose)[0]
+    noplan = assoc_matvec_chunked(X[None], Kp[None], Ke[None], pad(s1),
+                                  pad(d1), pad(s2), pad(d2),
+                                  transpose=transpose)[0]
     Xb = X.bfloat16()
     got_bf = k1.assoc_matvec_univ_v3(Xb, Kp, Ke, plan)
     plain_bf = k1.assoc_matvec_univ_v3_plain(Xb, Kp, Ke, plan)
@@ -184,7 +225,7 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
                 lambda: k1.assoc_matvec_univ_v3_plain(X, Kp, Ke, plan),
                 reps=5, flush=flush),
             noplan_ms=time_ms(
-                lambda: assoc_matvec_auto(
+                lambda: assoc_matvec_chunked(
                     X[None], Kp[None], Ke[None], pad(s1), pad(d1), pad(s2),
                     pad(d2), transpose=transpose), reps=5, flush=flush),
             bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
@@ -222,6 +263,150 @@ def phase_kernels():
             fail("zero-edge case disagrees with the Kp diagonal")
     del flush
     return rows
+
+
+# ------------------------------------------------- 3b bucket / any-size kernels
+def bucket_inputs(rng, B, N, E, C, n_lo, n_hi, multi_edges=False):
+    """A padded batch of ragged pairs on the card: Delaunay graphs of
+    n_lo..n_hi nodes (or, with `multi_edges`, random edge lists with repeated
+    edges and self-loops filling every slot), X / Kp zero outside the valid
+    block, Ke zero on padded slots."""
+    g = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    X = torch.zeros(B, N, N, C)
+    Kp = torch.zeros(B, N, N)
+    Ke = torch.zeros(B, E, E)
+    idx = np.zeros((4, B, E), np.int32)
+    n_e = np.zeros((B, 2), np.int64)
+    for b in range(B):
+        n1, n2 = (int(v) for v in rng.integers(n_lo, n_hi + 1, size=2))
+        if multi_edges:
+            lists = [rng.integers(0, n, size=E) for n in (n1, n1, n2, n2)]
+        else:
+            _, s1, d1 = delaunay(rng, n1)
+            _, s2, d2 = delaunay(rng, n2)
+            lists = [s1, d1, s2, d2]
+        if max(len(a) for a in lists) > E:
+            fail(f"e_max {E} too small for {[len(a) for a in lists]} edges")
+        for k, a in enumerate(lists):
+            idx[k, b, :len(a)] = a
+        e1, e2 = len(lists[0]), len(lists[2])
+        n_e[b] = (e1, e2)
+        X[b, :n1, :n2] = torch.randn(n1, n2, C, generator=g)
+        Kp[b, :n1, :n2] = torch.randn(n1, n2, generator=g)
+        Ke[b, :e1, :e2] = torch.randn(e1, e2, generator=g)
+    src1, dst1, src2, dst2 = (torch.from_numpy(a).to(DEV) for a in idx)
+    ar = torch.arange(E)
+    m1 = (ar[None] < torch.from_numpy(n_e[:, :1])).to(DEV)
+    m2 = (ar[None] < torch.from_numpy(n_e[:, 1:])).to(DEV)
+    return (X.to(DEV), Kp.to(DEV), Ke.to(DEV), src1, dst1, src2, dst2,
+            m1, m2, n_e)
+
+
+def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
+                multi_edges=False):
+    """K2 and K3 against their plain versions and against the plain ops of
+    ops.assoc, f32 and bf16 X. Returns one row per kernel."""
+    X, Kp, Ke, s1, d1, s2, d2, m1, m2, n_e = bucket_inputs(
+        rng, B, N, E, C, n_lo, n_hi, multi_edges)
+    masks = {} if multi_edges else dict(e1_mask=m1, e2_mask=m2)
+    edges = (s1, d1, s2, d2)
+    ops = assoc_matvec(X, Kp, Ke, *edges, transpose=transpose)
+    Xb = X.bfloat16()
+    e_real = float((n_e[:, 0] * n_e[:, 1]).sum())
+    # least work for THIS input: X, Kp, the real blocks of Ke and the
+    # grouped edge lists read once, Y written once; 2 flops per (association
+    # edge, channel) + the Kp term
+    index_bytes = 4 * B * (4 * E + 2 * (N + 1))
+    nbytes = 4 * (2 * B * N * N * C + B * N * N + e_real) + index_bytes
+    flops = 2.0 * C * e_real + 2.0 * B * N * N * C
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    rows = []
+    for name, kern, plain in (
+            ("assoc_bucket", k23.assoc_matvec_bucket,
+             k23.assoc_matvec_bucket_plain),
+            ("assoc_large", k23.assoc_matvec_large,
+             k23.assoc_matvec_large_plain)):
+        got = kern(X, Kp, Ke, *edges, transpose=transpose, **masks)
+        torch.cuda.synchronize()
+        again = kern(X, Kp, Ke, *edges, transpose=transpose, **masks)
+        want = plain(X, Kp, Ke, *edges, transpose=transpose, **masks)
+        got_bf = kern(Xb, Kp, Ke, *edges, transpose=transpose, **masks)
+        want_bf = plain(Xb, Kp, Ke, *edges, transpose=transpose, **masks)
+        torch.cuda.synchronize()
+        r = {"kernel": name, "B": B, "N": N, "E": E, "C": C,
+             "transpose": transpose, "multi_edges": multi_edges,
+             "assoc_edges": e_real,
+             "err_vs_plain": relerr(got, want),
+             "err_vs_ops": relerr(got, ops),
+             "bf16_err_vs_plain_bf16": relerr(got_bf, want_bf),
+             "bf16_err_vs_f32": relerr(got_bf, got),
+             "max_abs_err": float((got - want).abs().max()),
+             "bit_reproducible": bool(torch.equal(got, again))}
+        for k in ("err_vs_plain", "err_vs_ops", "bf16_err_vs_plain_bf16"):
+            if not r[k] <= 1e-5:
+                fail(f"{name} {k} = {r[k]:.3e} > 1e-5 at {r}")
+        if not r["bit_reproducible"]:
+            fail(f"{name}: two launches on the same inputs differ")
+        if not torch.isfinite(got).all():
+            fail(f"{name} produced non-finite values")
+        if timed:
+            call = lambda x=X: kern(x, Kp, Ke, *edges, transpose=transpose,
+                                    **masks)
+            r.update(
+                ms=time_ms(call, flush=flush),
+                ms_warm_l2=time_ms(call),
+                ms_bf16=time_ms(lambda: call(Xb), flush=flush),
+                plain_ms=time_ms(
+                    lambda: plain(X, Kp, Ke, *edges, transpose=transpose,
+                                  **masks), reps=5, flush=flush),
+                ops_ms=time_ms(
+                    lambda: assoc_matvec(X, Kp, Ke, *edges,
+                                         transpose=transpose),
+                    reps=5, flush=flush),
+                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows.append(r)
+    return rows
+
+
+def phase_kernels_bucket():
+    rng = np.random.default_rng(SEED + 3)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    saved = read_counts()
+    rows = []
+    for (B, N, E, n_lo, n_hi) in ((8, 64, 384, 40, 64),
+                                  (2, 256, 1536, 200, 256)):
+        for C in (1, 17):
+            for transpose in (True, False):
+                rows += bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose,
+                                    flush, timed=transpose)
+    rows += bucket_case(rng, 3, 64, 384, 5, 40, 64, True, flush, timed=False,
+                        multi_edges=True)
+    for r in rows:
+        say("[3 kernels] " + json.dumps(r))
+    # the grouping prologue (sort + counts + cumsum), shared by the three
+    # layers of a forward: its own time, a fresh set of index tensors per call
+    X, Kp, Ke, s1, d1, s2, d2, m1, m2, _ = bucket_inputs(
+        rng, 8, 64, 384, 1, 40, 64)
+    plan_ms = time_ms(lambda: k23.plan_bucket(
+        s1.clone(), d1, s2, d2, 64, 64, True, m1, m2))
+    say(f"[3 kernels] plan_bucket (B=8, E=384, once per batch): "
+        f"{plan_ms:.4f} ms")
+    # what does not fit the bucket kernel's shared memory must raise
+    try:
+        k23.assoc_matvec_bucket(
+            torch.zeros(1, 4, 4096, 17, device=DEV),
+            torch.zeros(1, 4, 4096, device=DEV),
+            torch.zeros(1, 0, 0, device=DEV),
+            *(torch.zeros(1, 0, dtype=torch.int32, device=DEV),) * 4)
+    except ValueError as e:
+        say(f"[3 kernels] too wide for assoc_bucket raises: {e}")
+    else:
+        fail("assoc_bucket accepted a row that cannot fit shared memory")
+    restore_counts(saved)
+    del flush
+    return rows, plan_ms
 
 
 # ------------------------------------------------------------------- serving
@@ -292,40 +477,41 @@ def phase_serve_univ(model):
                 ("genuine", make_request(rng, "genuine", 540, 600)),
                 ("impostor", make_request(rng, "impostor", 500, 600)),
                 ("ragged n1!=n2", make_request(rng, "ragged", 580, 600))]
-    for k in k1.LAUNCHES:
-        k1.LAUNCHES[k] = 0
+    reset_counts()
     times = serve("4 serve univ", model, requests)
-    launches = dict(k1.LAUNCHES)
+    launches = read_counts()
     want = 3 * len(requests)
     say(f"[4 serve univ] kernel launches on the main path: {launches} "
-        f"(expected {want}: one per GNN layer per request)")
-    if launches["assoc_univ_v3"] != want:
+        f"(expected {want} of assoc_univ_v3: one per GNN layer per request)")
+    if launches != {"assoc_univ_v3": want, "assoc_bucket": 0,
+                    "assoc_large": 0}:
         fail("the UNIV route did not go through the assoc_univ_v3 kernel "
-             "once per GNN layer")
+             "(and no other) once per GNN layer")
     say(f"[4 serve univ] wall ms per request after the first: "
         f"{[round(t * 1e3, 1) for t in times[1:]]}")
     return launches, times, requests[1][1]
 
 
-def phase_profile(model, req):
-    """Optional (`--profile`): where one UNIV request's device time goes, by
-    kernel name, from torch.profiler. Not part of the default run."""
+def phase_profile(what, fn):
+    """Optional (`--profile`): where the device time of one call of `fn` (a
+    UNIV request, an evaluate batch) goes, by kernel name, from
+    torch.profiler. Not part of the default run."""
     from torch.profiler import ProfilerActivity, profile
 
-    launches = dict(k1.LAUNCHES)
+    saved = read_counts()
     torch.cuda.synchronize()
     t = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        match_arrays(model, *req)
+        fn()
         torch.cuda.synchronize()
     wall = time.time() - t
-    k1.LAUNCHES.update(launches)
+    restore_counts(saved)
     evs = [e for e in prof.key_averages() if e.device_time_total > 0
            and e.device_type.name == "CUDA"]
     total = sum(e.device_time_total for e in evs)
     n = sum(e.count for e in evs)
-    say(f"[profile] one UNIV request under the profiler: wall "
+    say(f"[profile] {what} under the profiler: wall "
         f"{wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms in {n} "
         f"kernel launches")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:14]:
@@ -333,35 +519,37 @@ def phase_profile(model, req):
             f"{e.key[:90]}")
 
 
-def phase_parity(model, cfg, req):
-    """The card's result against the port's own CPU run (plain kernel
-    version) of the same weights and inputs, TF32 off on both sides."""
+@contextlib.contextmanager
+def tf32_off():
+    """Full-f32 convolutions and matmuls on the card, as on the CPU."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    launches = dict(k1.LAUNCHES)
-    res_g, out_g = match_arrays(model, *req, return_outputs=True)
-    torch.cuda.synchronize()
-    t = time.time()
-    cpu = build_model(cfg, device="cpu", state_dict={
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def cpu_copy(model, cfg):
+    return build_model(cfg, device="cpu", state_dict={
         k: v.cpu() for k, v in model.state_dict().items()})
-    res_c, out_c = match_arrays(cpu, *req, return_outputs=True)
-    say(f"[5 parity] CPU run (plain kernel version): {time.time() - t:.1f} s")
-    k1.LAUNCHES.update(launches)    # comparison launches do not count
-    torch.backends.cudnn.allow_tf32, \
-        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def compare_outputs(tag, out_g, out_c):
+    """The card's outputs against the CPU's, with the limits stated below."""
     errs = {}
     for k in ("Kp", "raw_scores", "sinkhorn", "ds_mat", "cls_prob",
               "k_prob"):
         a, b = out_g[k].cpu().float(), out_c[k].float()
         errs[k] = {"max_abs": float((a - b).abs().max()),
                    "ref_max": float(b.abs().max())}
-    pg, pc = out_g["perm_mat"][0].cpu(), out_c["perm_mat"][0]
-    agree = float((pg == pc).all(dim=1).float().mean())
-    say(f"[5 parity] gpu vs cpu: {json.dumps(errs)}")
-    say(f"[5 parity] perm_mat rows identical: {agree:.4f}; n_matched gpu "
-        f"{res_g['n_matched']} cpu {res_c['n_matched']}")
+    pg, pc = out_g["perm_mat"].cpu(), out_c["perm_mat"]
+    agree = float((pg == pc).all(dim=2).float().mean())
+    say(f"[{tag}] gpu vs cpu: {json.dumps(errs)}")
+    say(f"[{tag}] perm_mat rows identical: {agree:.4f}")
     # float32 on both sides with TF32 off; only the order of sums differs.
     # raw_scores pass three embedded Sinkhorns at tau = 0.01 (score
     # differences x100 before 20 normalization sweeps) and the final Sinkhorn
@@ -371,12 +559,29 @@ def phase_parity(model, cfg, req):
     for k, rel in tol.items():
         lim = rel * max(errs[k]["ref_max"], 1e-30)
         if not errs[k]["max_abs"] <= lim:
-            fail(f"parity: {k} differs by {errs[k]['max_abs']:.3e} > "
+            fail(f"{tag}: {k} differs by {errs[k]['max_abs']:.3e} > "
                  f"{lim:.3e}")
     for k in ("cls_prob", "k_prob"):
         if not errs[k]["max_abs"] <= 1e-3:
-            fail(f"parity: {k} differs by {errs[k]['max_abs']:.3e} > 1e-3")
+            fail(f"{tag}: {k} differs by {errs[k]['max_abs']:.3e} > 1e-3")
     return errs, agree
+
+
+def phase_parity(model, cfg, req):
+    """The card's result against the port's own CPU run (plain kernel
+    version) of the same weights and inputs, TF32 off on both sides."""
+    saved = read_counts()
+    with tf32_off():
+        res_g, out_g = match_arrays(model, *req, return_outputs=True)
+        torch.cuda.synchronize()
+    t = time.time()
+    res_c, out_c = match_arrays(cpu_copy(model, cfg), *req,
+                                return_outputs=True)
+    say(f"[5 parity] CPU run (plain kernel version): {time.time() - t:.1f} s")
+    restore_counts(saved)           # comparison launches do not count
+    say(f"[5 parity] n_matched gpu {res_g['n_matched']} cpu "
+        f"{res_c['n_matched']}")
+    return compare_outputs("5 parity", out_g, out_c)
 
 
 def phase_serve_bucket():
@@ -385,19 +590,244 @@ def phase_serve_bucket():
     rng = np.random.default_rng(SEED + 2)
     requests = [(k, make_request(rng, k, 40, 60))
                 for k in ("genuine", "impostor", "ragged")]
-    before = dict(k1.LAUNCHES)
+    reset_counts()
     times = serve("6 serve bucket", model, requests)
-    if k1.LAUNCHES != before:
+    launches = read_counts()
+    say(f"[6 serve bucket] kernel launches: {launches}")
+    if launches["assoc_univ_v3"] != 0:
         fail("the bucket route must not launch the UNIV kernel")
+    if launches["assoc_bucket"] != 3 * len(requests):
+        fail("the bucket route must launch assoc_bucket 3 times per request")
     say(f"[6 serve bucket] wall ms per request: "
         f"{[round(t * 1e3, 1) for t in times]}")
-    return times
+
+
+# ---------------------------------------------------------------- evaluation
+def eval_config(batch_size, n_max, e_max):
+    """The Config `cli.evaluate` builds from its flags."""
+    args = cli_evaluate.build_parser().parse_args(
+        ["--batch-size", str(batch_size), "--n-max", str(n_max), "--e-max",
+         str(e_max)])
+    cfg = model_config_from_args(args)
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=batch_size))
+
+
+def write_split(root, fingers, n_pores):
+    """A synthetic test split (R4): `fingers` fingers x 2 sessions x 2
+    stances, written by the port's generator from SEED."""
+    t = time.time()
+    generate_synthetic_dataset(root, fingers_per_split=(0, fingers, 0),
+                               n_pores=n_pores, seed=SEED, sessions=2,
+                               stances=2)
+    return time.time() - t
+
+
+def pair_dataset(root, cfg, index_dir):
+    bench = make_benchmark("Synthetic", "test", root=root, task="classify",
+                           output_dir=index_dir)
+    return PairDataset(bench, cfg, augment=False)
+
+
+def check_batch(tag, batch, out):
+    """Finite outputs and a partial permutation inside each sample's valid
+    block."""
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            fail(f"{tag}: output {k} has non-finite values")
+    perm = out["perm_mat"]
+    if not ((perm == 0) | (perm == 1)).all():
+        fail(f"{tag}: perm_mat is not 0/1")
+    if perm.sum(1).max() > 1 or perm.sum(2).max() > 1:
+        fail(f"{tag}: perm_mat row/column sums exceed 1")
+    N = perm.shape[1]
+    ar = torch.arange(N, device=perm.device)
+    valid = ((ar[None, :, None] < batch.n_nodes[:, 0, None, None])
+             & (ar[None, None, :] < batch.n_nodes[:, 1, None, None]))
+    if (perm * (~valid)).sum() != 0:
+        fail(f"{tag}: perm_mat has matches outside the valid block")
+
+
+class FirstFetch:
+    """A loader seen through a stopwatch: how long the consumer waited for
+    the first batch (worker start-up, first samples, first copy)."""
+
+    def __init__(self, loader):
+        self.loader, self.seconds = loader, None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        t = time.time()
+        for batch in self.loader:
+            if self.seconds is None:
+                self.seconds = time.time() - t
+            yield batch
+
+
+def run_evaluate(tag, model, loader, n_pairs, kernel):
+    """Drive cli.evaluate.evaluate_loader over the whole loader; `kernel`
+    is the one the aggregations must go through, 3 launches per batch."""
+    seen = []
+    loader = FirstFetch(loader)
+
+    def on_batch(bi, batch, out):
+        check_batch(f"{tag} batch {bi}", batch, out)
+        seen.append(int(batch.label.shape[0]))
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    res = cli_evaluate.evaluate_loader(model, loader, on_batch=on_batch)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = read_counts()
+    n_batches = len(seen)
+    say(f"[{tag}] {n_pairs} pairs in {n_batches} batches of sizes {seen}; "
+        f"kernel launches on the main path: {launches}")
+    if n_batches != len(loader) or sum(seen) != n_pairs:
+        fail(f"{tag}: {sum(seen)} pairs in {n_batches} batches, expected "
+             f"{n_pairs} in {len(loader)}")
+    for k in ("labels", "scores", "cls_scores", "k_probs"):
+        if len(res[k]) != n_pairs or not np.isfinite(res[k]).all():
+            fail(f"{tag}: {k} has {len(res[k])} entries for {n_pairs} pairs "
+                 f"or is not finite")
+    ms = [round(x * 1e3, 1) for x in res["batch_seconds"]]
+    steady = res["batch_seconds"][1:]
+    say(f"[{tag}] wall ms per batch: first {ms[0]} (of which "
+        f"{loader.seconds * 1e3:.1f} waiting for the loader's first batch), "
+        f"then {ms[1:]}")
+    say(f"[{tag}] {n_pairs / wall:.1f} pairs/s over the whole run (first "
+        f"batch included), {sum(seen[1:]) / max(sum(steady), 1e-9):.1f} "
+        f"pairs/s after the first batch")
+    say(f"[{tag}] step metrics (random weights): "
+        f"{json.dumps({k: round(v, 5) for k, v in res['metrics'].items()})}")
+    say(f"[{tag}] report (random weights, says nothing about accuracy): "
+        f"{json.dumps({k: round(v, 5) for k, v in res['report'].items()})}")
+    want = {k: 0 for k in launches}
+    want[kernel] = 3 * n_batches
+    if launches != want:
+        fail(f"{tag}: expected {want}: {kernel} once per GNN layer per batch "
+             f"and no other kernel")
+    return launches, res, wall
+
+
+def phase_evaluate(model, cfg, root, index_dir):
+    """>= 8 full batches of 8 plus a short one, spawned worker processes,
+    pinned + side-stream prefetch: the CLI's defaults."""
+    pd = pair_dataset(root, cfg, index_dir)
+    n = len(pd)
+    if n < 65 or n % 8 == 0:
+        fail(f"evaluate: {n} pairs do not make 8 full batches plus a short "
+             f"one")
+    loader = DataLoader(pd, cfg, drop_last=False, device=DEV,
+                        device_prefetch=True, num_workers=4,
+                        use_processes=True)
+    try:
+        launches, res, wall = run_evaluate("7 evaluate", model, loader, n,
+                                           "assoc_bucket")
+        if res["labels"].tolist() != [float(pd.bench.is_genuine(*p))
+                                      for p in pd.pairs]:
+            fail("evaluate: labels are not in pair order")
+    finally:
+        loader.close()
+    return launches, res, pd
+
+
+def phase_evaluate_parity(model, cfg, pd):
+    """Every prefetched batch (pinned memory, side stream) against the same
+    batch copied on the consumer's stream: bit for bit. Then one batch
+    through the model on the card against the port's own CPU run of it,
+    TF32 off."""
+    kw = dict(drop_last=False, device=DEV, num_workers=4,
+              use_processes=False)
+    pre = DataLoader(pd, cfg, device_prefetch=True, **kw)
+    plain = DataLoader(pd, cfg, device_prefetch=False, **kw)
+    try:
+        first, n = None, 0
+        for a, b in zip(pre, plain):
+            # keep the card busy on the consumer's stream while the next
+            # batch's copy runs on the side stream
+            torch.mm(torch.randn(2048, 2048, device=DEV),
+                     torch.randn(2048, 2048, device=DEV))
+            for name, x, y in zip(a._fields, a, b):
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(x, y)):
+                    fail(f"evaluate parity: prefetched field {name} of batch "
+                         f"{n} differs from the unprefetched one")
+            first = first or a
+            n += 1
+    finally:
+        pre.close()
+        plain.close()
+    say(f"[8 parity] {n} prefetched batches bit-identical to the "
+        f"unprefetched ones")
+    saved = read_counts()
+    with tf32_off():
+        out_g = model(first)
+        torch.cuda.synchronize()
+    t = time.time()
+    out_c = cpu_copy(model, cfg)(first.to("cpu"))
+    say(f"[8 parity] CPU run of one batch of {first.batch_size} (plain "
+        f"kernel version): {time.time() - t:.1f} s")
+    restore_counts(saved)
+    return compare_outputs("8 parity", out_g, out_c), first
+
+
+def phase_evaluate_large(root, index_dir):
+    """Batches of 2 at n_max=256, e_max=1536: 2.36 M association edge slots
+    per sample, where `assoc_matvec_auto` picks the any-size kernel."""
+    cfg = eval_config(2, 256, 1536)
+    if cfg.shapes.e_max ** 2 < CHUNKED_NNZ_THRESHOLD:
+        fail("this configuration would not reach assoc_large")
+    model = build_model(cfg, device="cuda", seed=SEED)
+    pd = pair_dataset(root, cfg, index_dir)
+    pd.pairs = pd.pairs[:3] + pd.pairs[-2:]       # 3 genuine + 2 impostors
+    loader = DataLoader(pd, cfg, drop_last=False, device=DEV,
+                        device_prefetch=True, num_workers=2,
+                        use_processes=False)
+    try:
+        launches, res, _ = run_evaluate("9 evaluate large", model, loader,
+                                        len(pd), "assoc_large")
+    finally:
+        loader.close()
+    sample = pd.get(0)
+    say(f"[9 evaluate large] keypoints of the first pair: "
+        f"{[len(p) for p in sample.points]}")
+    return launches
+
+
+def kernel_entry(name, rows, launches, replaces, pick, shape_keys):
+    """One entry of the `kernels` JSON line: the numbers of the timed row
+    `pick` selects, the worst errors over all rows, every timed shape."""
+    timed = [r for r in rows if "ms" in r]
+    main = next(r for r in timed if pick(r))
+    return {
+        "name": name, "route": "cuda", "source": k23.SOURCE
+        if name != "assoc_univ_v3" else k1.SOURCE, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_rel_err": max(r["err_vs_plain"] for r in rows),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in shape_keys} for r in timed]}
 
 
 def main():
+    profile = "--profile" in sys.argv[1:]
     card = phase_device()
+    try:
+        import matplotlib
+        say(f"[1 device] matplotlib {matplotlib.__version__} (plots of "
+            f"cli.evaluate; not on the device path)")
+    except ImportError:
+        say("[1 device] matplotlib not installed: cli.evaluate's plots "
+            "cannot be drawn here (not on the device path)")
     phase_build()
-    rows = phase_kernels()
+    rows1 = phase_kernels()
+    rows23, plan_ms = phase_kernels_bucket()
 
     cfg = cli_config(600, 3840, 600)
     t = time.time()
@@ -405,29 +835,56 @@ def main():
     n_par = sum(p.numel() for p in model.parameters())
     say(f"[4 serve univ] full-width model ({n_par / 1e6:.1f} M parameters) "
         f"initialised from seed {SEED} in {time.time() - t:.1f} s")
-    launches, t_univ, req = phase_serve_univ(model)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(model, req)
+    launches1, t_univ, req = phase_serve_univ(model)
+    if profile:
+        phase_profile("one UNIV request",
+                      lambda: match_arrays(model, *req))
     phase_parity(model, cfg, req)
     del model
     torch.cuda.empty_cache()
     phase_serve_bucket()
 
-    c17 = next(r for r in rows if "ms" in r and r["C"] == 17)
-    c1 = next(r for r in rows if "ms" in r and r["C"] == 1)
-    shape = lambda r: {k: r[k] for k in (
-        "C", "N", "E1", "E2", "S1", "S2", "ms", "ms_warm_l2", "ms_bf16",
-        "plain_ms", "noplan_ms", "bound_ms", "bound_by", "bytes", "flops")}
-    kernels = {"kernels": [{
-        "name": "assoc_univ_v3", "route": "cuda",
-        "source": k1.SOURCE, "replaces": k1.REPLACES,
-        "launches": launches["assoc_univ_v3"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_rel_err": max(r["err_vs_plain"] for r in rows),
-        "ms": c17["ms"], "plain_ms": c17["plain_ms"],
-        "bound_ms": c17["bound_ms"], "bound_by": c17["bound_by"],
-        "library_ms": None,
-        "shapes": [shape(c1), shape(c17)]}]}
+    with tempfile.TemporaryDirectory(prefix="fpm_smoke_") as tmp:
+        ecfg = eval_config(8, 64, 384)
+        emodel = build_model(ecfg, device="cuda", seed=SEED)
+        secs = write_split(f"{tmp}/bucket", fingers=7, n_pores=110)
+        say(f"[7 evaluate] synthetic test split (7 fingers x 2 sessions x 2 "
+            f"stances, 110 pores) written in {secs:.1f} s")
+        launches2, _, pd = phase_evaluate(emodel, ecfg, f"{tmp}/bucket",
+                                          f"{tmp}/index")
+        (_, _), batch = phase_evaluate_parity(emodel, ecfg, pd)
+        if profile:
+            phase_profile("one evaluate batch of 8", lambda: emodel(batch))
+        del emodel, batch
+        torch.cuda.empty_cache()
+        # 320 pores per finger leave 200-256 keypoints inside the
+        # standardized 240x320 crop
+        secs = write_split(f"{tmp}/large", fingers=2, n_pores=320)
+        say(f"[9 evaluate large] synthetic test split (2 fingers x 2 x 2, "
+            f"320 pores) written in {secs:.1f} s")
+        launches3 = phase_evaluate_large(f"{tmp}/large", f"{tmp}/index")
+
+    keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "ms_warm_l2", "ms_bf16",
+             "plain_ms", "noplan_ms", "bound_ms", "bound_by", "bytes",
+             "flops")
+    keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "ms_warm_l2",
+              "ms_bf16", "plain_ms", "ops_ms", "bound_ms", "bound_by",
+              "bytes", "flops")
+    of = lambda name: [r for r in rows23 if r["kernel"] == name]
+    kernels = {"kernels": [
+        kernel_entry("assoc_univ_v3", rows1, launches1["assoc_univ_v3"],
+                     k1.REPLACES, lambda r: r["C"] == 17, keys1),
+        # each at the shape its main path gives it
+        kernel_entry("assoc_bucket", of("assoc_bucket"),
+                     launches2["assoc_bucket"],
+                     k23.REPLACES["assoc_bucket"],
+                     lambda r: (r["N"], r["C"]) == (64, 17), keys23),
+        kernel_entry("assoc_large", of("assoc_large"),
+                     launches3["assoc_large"], k23.REPLACES["assoc_large"],
+                     lambda r: (r["N"], r["C"]) == (256, 17), keys23)]}
+    # the grouping prologue both wrappers share, once per batch
+    for k in kernels["kernels"][1:]:
+        k["plan_ms"] = plan_ms
     say(json.dumps(kernels))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")

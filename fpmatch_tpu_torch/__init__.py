@@ -15,8 +15,13 @@ as their JAX counterparts:
             beside each
   models/   nn.Modules: ResNet-18 backbone, spline net, association-graph GNN
             layers, AFA-U k-predictor, match classifier, the full NGMNet
-  data/     numpy batch construction (synthetic pairs, collation, keypoints)
-  cli/      entry points (single-pair serving: `cli.match`)
+  data/     numpy side: synthetic pairs and datasets, the dataset index and
+            pair protocols, pair construction, collation, the loader
+  evaluation/  matching and verification metrics (ROC / EER / FAR / FRR)
+  train/    the eval step, the permutation loss, checkpoint files
+  utils/    match drawings
+  cli/      entry points (single-pair serving: `cli.match`; batched
+            verification evaluation: `cli.evaluate`)
   convert   Flax variable tree (as numpy) -> state_dict
 
 Where the JAX package lifts single-pair functions with vmap, this package is

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import numpy as np
@@ -87,14 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weight init used without a checkpoint")
     return ap
-
-
-def read_meta(ckpt_dir: str) -> dict:
-    meta_path = os.path.join(os.path.abspath(ckpt_dir), "checkpoint.json")
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            return json.load(f)
-    return {}
 
 
 def read_pair(args):
@@ -202,18 +193,14 @@ def load_model(cfg, args):
     """The serving model on `args.device`: checkpoint weights when one is
     named or recorded as latest, else weights initialised from `--seed`.
     Returns (model, checkpoint name or None)."""
-    import torch
-
     from ..models.ngm import build_model
+    from ..train.checkpoints import read_meta, restore_params
 
     ckpt_name = args.checkpoint or read_meta(args.checkpoint_dir).get(
         "latest")
     state_dict = None
     if ckpt_name:
-        state_dict = torch.load(
-            os.path.join(os.path.abspath(args.checkpoint_dir),
-                         f"{ckpt_name}.pt"),
-            map_location="cpu", weights_only=True)
+        state_dict = restore_params(args.checkpoint_dir, ckpt_name)
     else:
         print("WARNING: no checkpoint found — scoring with random weights",
               file=sys.stderr)

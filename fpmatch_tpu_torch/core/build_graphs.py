@@ -84,3 +84,19 @@ def build_edges(P: np.ndarray, stg: str = "tri", sym: bool = True,
         raise ValueError(f"unknown graph construction strategy: {stg}")
     src, dst = adjacency_to_edges(A, sym=sym)
     return A, src, dst
+
+
+def permute_edges(src: np.ndarray, dst: np.ndarray, perm: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Map graph-1 edges into graph-2 node ids through a partial permutation
+    (G2 = P^T G1 when the target graph is built as 'same'). `perm` is
+    (n1, n2) 0/1; rows with no match drop the edge. Returns the surviving
+    mapped (src2, dst2)."""
+    n1, n2 = perm.shape
+    row_to_col = np.full((n1,), -1, dtype=np.int64)
+    ri, ci = np.nonzero(perm)
+    row_to_col[ri] = ci
+    s2 = row_to_col[src]
+    d2 = row_to_col[dst]
+    keep = (s2 >= 0) & (d2 >= 0)
+    return s2[keep].astype(np.int32), d2[keep].astype(np.int32)

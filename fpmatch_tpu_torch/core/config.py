@@ -3,7 +3,8 @@
 Field-for-field the same tree as the JAX package's `core/config.py`: the
 weight converter, the CLIs and the parity tests rely on the names and the
 defaults. Fields that configure code not ported yet (training stages, mesh)
-are kept so a config round-trips between the two packages.
+are kept so a config round-trips between the two packages; `default_stages`
+is here because evaluation composes its loss from the last stage's flags.
 """
 from __future__ import annotations
 
@@ -103,7 +104,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class StageConfig:
-    """One curriculum stage (training is not ported yet)."""
+    """One curriculum stage (the train step is not ported yet; evaluation
+    reads the loss_* flags)."""
 
     name: str = "stage1"
     num_epochs: int = 10
@@ -150,3 +152,24 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def default_stages() -> Tuple[StageConfig, ...]:
+    """The 6-stage curriculum:
+      s1: freeze k head, train everything else (grad clip 1.0)
+      s2: only k head
+      s3: all params
+      s4: only k head
+      s5: all but match classifier
+      s6: only match classifier
+    """
+    return (
+        StageConfig(name="stage1", train_main=True, train_k=False, train_cls=True,
+                    grad_clip=1.0, loss_ks=False),
+        StageConfig(name="stage2", train_main=False, train_k=True, train_cls=False),
+        StageConfig(name="stage3", train_main=True, train_k=True, train_cls=True),
+        StageConfig(name="stage4", train_main=False, train_k=True, train_cls=False),
+        StageConfig(name="stage5", train_main=True, train_k=True, train_cls=False),
+        StageConfig(name="stage6", train_main=False, train_k=False, train_cls=True,
+                    loss_perm=False, loss_ks=False),
+    )

@@ -1,0 +1,330 @@
+"""Batched association matvec at bucket scale and at any size: CUDA kernels.
+
+Counterpart of the JAX package's `kernels/assoc_pallas.py` — the Pallas
+`_kernel` reached through `assoc_matvec_pallas` (everything resident, `Kp*X`
+fused) and `_kernel_large` reached through `assoc_matvec_pallas_large`
+(blocked, `Kp*X` added outside). The same function and contract as
+`ops.assoc.assoc_matvec`, batch-native:
+
+    Y[b,a,j,c] = Kp[b,a,j] X[b,a,j,c]
+               + sum_{e1: out1(e1)=a} sum_{e2: out2(e2)=j}
+                     Ke[b,e1,e2] X[b, in1(e1), in2(e2), c]
+
+with (out, in) = (src, dst), or (dst, src) for `transpose=True` (K^T, the
+model's orientation). Edge lists are (B, E) integers; padded edge slots alias
+node 0 and MUST carry Ke == 0. X is float32 or bfloat16 (bf16: gathered and
+multiplied from the bf16 values, the JAX kernels' "default" precision; Ke, Kp,
+the accumulator and the result stay f32).
+
+Re-thought for a GPU: each graph's edges are grouped once by their scatter
+endpoint (`plan_bucket`: a stable sort + counts + cumsum on the device, CSR
+per sample; index bookkeeping, remembered for the last set of edge lists so
+the three GNN layers of one forward share it), and every output cell gathers
+and reduces its own terms — no one-hot matmuls, no transposed layout, no
+atomics, so the order of the sum is fixed and two runs give the same bits.
+Duplicate edges and self-loops are ordinary members of a run.
+
+Padded slots: with `e1_mask` / `e2_mask` (True = real edge; what the model
+passes) the masked-out slots are in no run and are never read. Without masks
+they sit in node 0's run and are multiplied by their Ke == 0 like any other
+edge. The two differ only when X[b, 0, 0] is not finite: 0 * inf = nan then
+reaches Y[b, 0, 0] without masks (as in `ops.assoc.assoc_matvec`) and does
+not with them; Y[b, 0, 0] = Kp X[b, 0, 0] + ... is not finite either way.
+
+`assoc_matvec_bucket` / `assoc_matvec_large` launch the CUDA kernels
+(csrc/assoc_bucket.cu) for CUDA tensors — or raise — and use the plain
+PyTorch versions (`..._plain`: the same grouping, padded to slots, dense sums
+over the slot axes) only for tensors that lie on the CPU. Both kernels are
+memory-bound; see the note at the top of the source. Inference only: like
+the TPU kernels they have no backward of their own.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from . import _build
+
+# the TPU kernels these replace (file:line of the Pallas kernel bodies)
+REPLACES = {"assoc_bucket": "fpmatch_tpu/kernels/assoc_pallas.py:79",
+            "assoc_large": "fpmatch_tpu/kernels/assoc_pallas.py:177"}
+SOURCE = "fpmatch_tpu_torch/kernels/csrc/assoc_bucket.cu"
+
+# launches of each CUDA kernel, counted where its wrapper launches it
+LAUNCHES: Dict[str, int] = {"assoc_bucket": 0, "assoc_large": 0}
+
+_MAX_SMEM = 200 * 1024     # dynamic shared memory the bucket kernel may ask for
+DEFAULT_BLOCK_C = 8        # channels per block of the any-size kernel
+
+
+class BucketPlan(NamedTuple):
+    """Both graphs' edges grouped by scatter endpoint, per sample (int32
+    tensors on the device of the edge lists)."""
+    n1: int
+    n2: int
+    order1: torch.Tensor   # (B, E1) graph-1 edge ids sorted by out1
+    ins1: torch.Tensor     # (B, E1) in1 of those edges
+    offs1: torch.Tensor    # (B, n1 + 1) run offsets: node a owns
+    #                        order1[b, offs1[b, a]:offs1[b, a + 1]]
+    order2: torch.Tensor
+    ins2: torch.Tensor
+    offs2: torch.Tensor
+
+
+def _csr(out, inn, n: int, mask):
+    B = out.shape[0]
+    key = out.long()
+    if mask is not None:
+        key = torch.where(mask.bool(), key, n)     # masked-out: past the end
+    order = torch.sort(key, dim=1, stable=True).indices
+    counts = torch.zeros((B, n + 1), dtype=torch.int64, device=out.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offs = torch.zeros((B, n + 1), dtype=torch.int32, device=out.device)
+    offs[:, 1:] = torch.cumsum(counts[:, :n], dim=1)
+    return (order.int().contiguous(),
+            inn.long().gather(1, order).int().contiguous(), offs)
+
+
+_memo: Dict[str, object] = {"key": None, "held": None, "plan": None}
+
+
+def _version(t: torch.Tensor) -> int:
+    # tensors made under torch.inference_mode() keep no version counter: an
+    # in-place write to one of those between two calls is not seen
+    return 0 if t.is_inference() else t._version
+
+
+def plan_bucket(src1, dst1, src2, dst2, n1: int, n2: int,
+                transpose: bool = False, e1_mask=None, e2_mask=None
+                ) -> BucketPlan:
+    """Group both edge lists by scatter endpoint (device ops, no host sync).
+
+    The plan of the last call is kept, together with the tensors it was made
+    from (so their memory cannot be reused while it is kept), and returned
+    again when the same tensors — same storage, shape, strides and version
+    counter — come back: the GNN layers of one forward share one plan."""
+    given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
+    key = (n1, n2, transpose) + tuple(
+        None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
+                                _version(t), t.dtype, t.device)
+        for t in given)
+    if _memo["key"] == key:
+        return _memo["plan"]
+    out1, in1, out2, in2 = ((dst1, src1, dst2, src2) if transpose
+                            else (src1, dst1, src2, dst2))
+    plan = BucketPlan(n1, n2, *_csr(out1, in1, n1, e1_mask),
+                      *_csr(out2, in2, n2, e2_mask))
+    _memo.update(key=key, held=given, plan=plan)
+    return plan
+
+
+def _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask):
+    if X.dim() != 4:
+        raise ValueError(f"X must be (B, N1, N2, C), got {tuple(X.shape)}")
+    B, n1, n2, _ = X.shape
+    if tuple(Kp.shape) != (B, n1, n2):
+        raise ValueError(f"Kp must be {(B, n1, n2)}, got {tuple(Kp.shape)}")
+    if Ke.dim() != 3 or Ke.shape[0] != B:
+        raise ValueError(f"Ke must be (B, E1, E2), got {tuple(Ke.shape)}")
+    e1, e2 = Ke.shape[1], Ke.shape[2]
+    for name, t, e in (("src1", src1, e1), ("dst1", dst1, e1),
+                       ("src2", src2, e2), ("dst2", dst2, e2),
+                       ("e1_mask", e1_mask, e1), ("e2_mask", e2_mask, e2)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (B, e):
+            raise ValueError(f"{name} must be {(B, e)}, got {tuple(t.shape)}")
+        if t.device != X.device:
+            raise ValueError("all tensors must lie on one device")
+        if not name.endswith("mask") and (t.dtype.is_floating_point
+                                          or t.dtype == torch.bool):
+            raise TypeError(f"{name} must be an integer tensor")
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"X must be float32 or bfloat16, got {X.dtype}")
+    if Kp.dtype != torch.float32 or Ke.dtype != torch.float32:
+        raise TypeError("Kp and Ke must be float32")
+    if Kp.device != X.device or Ke.device != X.device:
+        raise ValueError("all tensors must lie on one device")
+
+
+# ------------------------------------------------------------ plain versions
+def _slots(order, ins, offs, n_edges: int):
+    """A CSR grouping padded to max-degree slots: (in_slot, e_slot), both
+    (B, n, S) int64; pad slots gather node 0 and edge id `n_edges`, the zero
+    row / column appended to Ke."""
+    B, n = offs.shape[0], offs.shape[1] - 1
+    deg = (offs[:, 1:] - offs[:, :-1]).long()
+    S = max(int(deg.max()) if deg.numel() else 0, 1)
+    ar = torch.arange(S, device=offs.device)
+    valid = ar < deg[..., None]                              # (B, n, S)
+    if n_edges == 0:
+        z = torch.zeros((B, n, S), dtype=torch.int64, device=offs.device)
+        return z, z
+    pos = torch.where(valid, offs[:, :-1, None].long() + ar, 0).reshape(B, -1)
+    in_slot = ins.long().gather(1, pos).reshape(B, n, S)
+    e_slot = order.long().gather(1, pos).reshape(B, n, S)
+    return (torch.where(valid, in_slot, 0),
+            torch.where(valid, e_slot, n_edges))
+
+
+def _edge_terms_plain(X, Ke, plan: BucketPlan) -> torch.Tensor:
+    B, n1, n2, C = X.shape
+    E1, E2 = Ke.shape[1], Ke.shape[2]
+    in1_slot, e1_slot = _slots(plan.order1, plan.ins1, plan.offs1, E1)
+    in2_slot, e2_slot = _slots(plan.order2, plan.ins2, plan.offs2, E2)
+    S1, S2 = in1_slot.shape[2], in2_slot.shape[2]
+    Kz = torch.nn.functional.pad(Ke, (0, 1, 0, 1))       # zero row / column
+    Xf = X.float()
+    bi = torch.arange(B, device=X.device)
+    cols = in2_slot.reshape(B, 1, n2 * S2, 1).expand(B, n1, n2 * S2, C)
+    e2 = e2_slot.reshape(B, 1, n2 * S2)
+    Y = torch.zeros((B, n1, n2, C), dtype=torch.float32, device=X.device)
+    for s in range(S1):
+        rows = Xf[bi[:, None], in1_slot[:, :, s]]            # (B, n1, n2, C)
+        g = rows.gather(2, cols).reshape(B, n1, n2, S2, C)
+        ke = Kz[bi[:, None, None], e1_slot[:, :, s, None], e2]
+        # pad slots are in no run: the kernel never reads them, so they add
+        # an exact zero here even where the value they gather is not finite
+        real = (e1_slot[:, :, s, None] < E1) & (e2 < E2)
+        term = torch.where(real.reshape(B, n1, n2, S2, 1),
+                           g * ke.reshape(B, n1, n2, S2, 1), 0.0)
+        Y = Y + term.sum(dim=3)
+    return Y
+
+
+def assoc_matvec_bucket_plain(X, Kp, Ke, src1, dst1, src2, dst2,
+                              transpose: bool = False, e1_mask=None,
+                              e2_mask=None) -> torch.Tensor:
+    """The plain PyTorch version of `assoc_matvec_bucket`: the same grouping
+    by scatter endpoint, padded to max-degree slots, `index` / `gather` +
+    broadcast multiply + dense sums over the slot axes, f32 accumulation.
+    Used by the CPU tests and as the yardstick the kernel is held against."""
+    _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
+    plan = plan_bucket(src1, dst1, src2, dst2, X.shape[1], X.shape[2],
+                       transpose, e1_mask, e2_mask)
+    return Kp[..., None] * X.float() + _edge_terms_plain(X, Ke, plan)
+
+
+def assoc_matvec_large_plain(X, Kp, Ke, src1, dst1, src2, dst2,
+                             transpose: bool = False, e1_mask=None,
+                             e2_mask=None, block_c: int = DEFAULT_BLOCK_C
+                             ) -> torch.Tensor:
+    """The plain PyTorch version of `assoc_matvec_large`: the edge terms one
+    channel chunk at a time, the Kp term added after them."""
+    _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
+    if block_c < 1:
+        raise ValueError("block_c must be >= 1")
+    plan = plan_bucket(src1, dst1, src2, dst2, X.shape[1], X.shape[2],
+                       transpose, e1_mask, e2_mask)
+    Y = torch.cat([_edge_terms_plain(X[..., c:c + block_c], Ke, plan)
+                   for c in range(0, X.shape[3], block_c)], dim=-1)
+    return Y + Kp[..., None] * X.float()
+
+
+# ------------------------------------------------------------------ launches
+def _fn(lib, name, n_ptr, n_int):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
+        [ctypes.c_void_p]
+    return fn
+
+
+def _bucket_rows(row_elems: int, itemsize: int) -> int:
+    """How many gathered X rows the bucket kernel stages at a time."""
+    for rows in (8, 4, 2, 1):
+        if 4 * row_elems + 4 * rows + rows * row_elems * itemsize \
+                <= _MAX_SMEM:
+            return rows
+    raise ValueError(
+        f"assoc_matvec_bucket: one row of X (N2 * C = {row_elems} values) "
+        f"does not fit the kernel's shared memory; use assoc_matvec_large")
+
+
+def _launch_bucket(X, Kp, Ke, plan: BucketPlan) -> torch.Tensor:
+    B, n1, n2, C = X.shape
+    rows = _bucket_rows(n2 * C, X.element_size())
+    lib = _build.load("assoc_bucket")
+    fn = _fn(lib, "fpm_assoc_bucket_bf16" if X.dtype == torch.bfloat16
+             else "fpm_assoc_bucket_f32", 10, 7)
+    X, Kp, Ke = X.contiguous(), Kp.contiguous(), Ke.contiguous()
+    Y = torch.empty((B, n1, n2, C), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(X.data_ptr(), Kp.data_ptr(), Ke.data_ptr(),
+                  *(t.data_ptr() for t in plan[2:]), Y.data_ptr(), B, n1, n2,
+                  C, Ke.shape[1], Ke.shape[2], rows, stream)
+    _build.check(lib, code, "assoc_bucket launch")
+    LAUNCHES["assoc_bucket"] += 1
+    return Y
+
+
+def _launch_large(X, Ke, plan: BucketPlan, block_c: int) -> torch.Tensor:
+    B, n1, n2, C = X.shape
+    lib = _build.load("assoc_bucket")
+    fn = _fn(lib, "fpm_assoc_large_bf16" if X.dtype == torch.bfloat16
+             else "fpm_assoc_large_f32", 9, 7)
+    X, Ke = X.contiguous(), Ke.contiguous()
+    Y = torch.empty((B, n1, n2, C), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(X.data_ptr(), Ke.data_ptr(),
+                  *(t.data_ptr() for t in plan[2:]), Y.data_ptr(), B, n1, n2,
+                  C, Ke.shape[1], Ke.shape[2], block_c, stream)
+    _build.check(lib, code, "assoc_large launch")
+    LAUNCHES["assoc_large"] += 1
+    return Y
+
+
+def assoc_matvec_bucket(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
+                        src1, dst1, src2, dst2, transpose: bool = False,
+                        e1_mask: Optional[torch.Tensor] = None,
+                        e2_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K vec(X) (or K^T vec(X)) for a batch of bucket-scale pairs, `Kp * X`
+    fused.
+
+    :param X: (B, N1, N2, C) float32 or bfloat16
+    :param Kp: (B, N1, N2) f32; Ke: (B, E1, E2) f32, zero on padded slots
+    :param src1, dst1: (B, E1) integer edge endpoints; src2, dst2: (B, E2)
+    :param e1_mask, e2_mask: optional (B, E) validity of the edge slots;
+        masked-out slots are skipped (see the module docstring)
+    :return: (B, N1, N2, C) float32
+
+    CUDA tensors go through the CUDA kernel (a failed build or launch, or a
+    row of X too wide for shared memory, raises); CPU tensors through the
+    plain version.
+    """
+    _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
+    if X.device.type == "cuda":
+        plan = plan_bucket(src1, dst1, src2, dst2, X.shape[1], X.shape[2],
+                           transpose, e1_mask, e2_mask)
+        return _launch_bucket(X, Kp, Ke, plan)
+    if X.device.type == "cpu":
+        return assoc_matvec_bucket_plain(X, Kp, Ke, src1, dst1, src2, dst2,
+                                         transpose, e1_mask, e2_mask)
+    raise RuntimeError(f"assoc_matvec_bucket: unsupported device {X.device}")
+
+
+def assoc_matvec_large(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
+                       src1, dst1, src2, dst2, transpose: bool = False,
+                       e1_mask: Optional[torch.Tensor] = None,
+                       e2_mask: Optional[torch.Tensor] = None,
+                       block_c: int = DEFAULT_BLOCK_C) -> torch.Tensor:
+    """The same product for pairs of any size: nothing is assumed to fit in
+    shared memory, the channels are processed `block_c` at a time (C need not
+    be a multiple), and `Kp * X` is added outside the kernel. Arguments and
+    result as `assoc_matvec_bucket`."""
+    _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
+    if block_c < 1:
+        raise ValueError("block_c must be >= 1")
+    if X.device.type == "cuda":
+        plan = plan_bucket(src1, dst1, src2, dst2, X.shape[1], X.shape[2],
+                           transpose, e1_mask, e2_mask)
+        return _launch_large(X, Ke, plan, block_c) + Kp[..., None] * X.float()
+    if X.device.type == "cpu":
+        return assoc_matvec_large_plain(X, Kp, Ke, src1, dst1, src2, dst2,
+                                        transpose, e1_mask, e2_mask, block_c)
+    raise RuntimeError(f"assoc_matvec_large: unsupported device {X.device}")

@@ -16,10 +16,16 @@ transposed product K^T vec X (what the model uses) swaps the src/dst roles.
 
 Every function takes a leading batch axis B and flattens it into the gather
 and scatter indices; padded edge slots alias node 0 and MUST carry Ke == 0.
+
+`assoc_matvec_auto` is where the device decides: CPU tensors take the plain
+ops of this module, CUDA tensors the hand-written kernels of
+`kernels.assoc_bucket` (or raise; they never give way to the plain ops).
 """
 from __future__ import annotations
 
 import torch
+
+from ..kernels.assoc_bucket import assoc_matvec_bucket, assoc_matvec_large
 
 
 def _batch_offsets(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -94,10 +100,20 @@ CHUNK_E1 = 256
 
 
 def assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
-                      transpose: bool = False):
+                      transpose: bool = False, e1_mask=None, e2_mask=None):
     """Static-shape dispatch between the one-shot form (bucket scale) and
-    the chunked bounded-memory form (UNIV scale)."""
-    if Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD:
+    the bounded-memory form (from CHUNKED_NNZ_THRESHOLD association edges per
+    sample up). On a CUDA tensor the two forms are the CUDA kernels
+    `assoc_matvec_bucket` and `assoc_matvec_large`, which skip the edge
+    slots that `e1_mask` / `e2_mask` (B, E) mark as padding; on a CPU tensor
+    they are the plain ops above, for which padded slots are inert through
+    their Ke == 0."""
+    large = Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD
+    if X.device.type == "cuda":
+        kernel = assoc_matvec_large if large else assoc_matvec_bucket
+        return kernel(X, Kp, Ke, src1, dst1, src2, dst2, transpose=transpose,
+                      e1_mask=e1_mask, e2_mask=e2_mask)
+    if large:
         return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
                                     transpose=transpose, chunk=CHUNK_E1)
     return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
@@ -133,7 +149,8 @@ def assoc_aggregate_mean(X, Kp, Ke, src1, dst1, src2, dst2,
     """Mean-aggregated sparse propagation: row-wise (K^T x) / rownnz(K^T)."""
     n1, n2 = X.shape[1], X.shape[2]
     y = assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
-                          transpose=transpose)
+                          transpose=transpose, e1_mask=e1_mask,
+                          e2_mask=e2_mask)
     deg = assoc_degree(Kp_present, e1_mask, e2_mask, src1, dst1, src2, dst2,
                        n1, n2, transpose=transpose)
     return y / torch.clamp(deg, min=1.0)[..., None]

@@ -1,0 +1,31 @@
+"""Masked loss functions: the part of the JAX package's `train/losses.py`
+that evaluation runs (`permutation_loss`, forward only). The other losses
+belong to training and are not ported yet (ROADMAP.md, Queue A: training).
+
+Losses take padded (B, S1, S2) matrices + per-sample valid counts: summed
+over valid cells, normalized by the summed source-node counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.masking import rect_mask
+
+# must be representable against 1.0 in fp32: with eps below machine epsilon
+# clamp(p, EPS, 1 - EPS) is a no-op at the top end and a fully converged cell
+# (p == 1.0 exactly) makes the BCE compute 0 * (-inf) = NaN
+EPS = 1e-7
+
+
+def _valid_mask(ns1, ns2, s1: int, s2: int):
+    return rect_mask(ns1, ns2, s1, s2)
+
+
+def permutation_loss(pred_dsmat, gt_perm, ns1, ns2):
+    """Masked binary cross-entropy between the predicted doubly-stochastic
+    matrix and the GT permutation; sum over valid cells / sum(ns1)."""
+    m = _valid_mask(ns1, ns2, pred_dsmat.shape[1], pred_dsmat.shape[2])
+    p = torch.clamp(pred_dsmat, EPS, 1.0 - EPS)
+    ce = -(gt_perm * torch.log(p) + (1.0 - gt_perm) * torch.log1p(-p))
+    total = torch.sum(torch.where(m, ce, 0.0))
+    return total / torch.clamp(torch.sum(ns1).to(pred_dsmat.dtype), min=1.0)

@@ -1,0 +1,347 @@
+"""The port's batched association matvec kernels (kernels/assoc_bucket) on
+the CPU: their plain PyTorch versions — the functions the CUDA kernels are
+held against on the card — versus the JAX package's Pallas kernels in
+interpret mode (`assoc_matvec_pallas`, `assoc_matvec_pallas_large`, small
+blocks as tests/test_pallas.py runs them) and versus the gather/segment-sum
+op. Inputs come from a numpy seed and go to both sides; f32, sums taken in
+another order: rtol = atol = 1e-4, the limits of tests/test_pallas.py."""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from fpmatch_tpu.core.build_graphs import build_edges
+from fpmatch_tpu.kernels.assoc_pallas import (assoc_matvec_pallas,
+                                              assoc_matvec_pallas_large)
+from fpmatch_tpu.ops.assoc import assoc_matvec as j_assoc_matvec
+from fpmatch_tpu_torch.kernels import assoc_bucket as kb
+from fpmatch_tpu_torch.ops import assoc as t_assoc
+from test_torch_utils import t2n
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def tt(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _rand_case(rng, B, n1, n2, e1, e2, c, valid1=None, valid2=None):
+    """Random edge lists as tests/test_pallas.py draws them (`integers`:
+    duplicate edges and self-loops are legal input). With valid1 / valid2
+    (per-sample counts) the slots past the count are padding: they alias node
+    0 and carry Ke == 0."""
+    idx = [rng.integers(0, n, size=(B, e)).astype(np.int32)
+           for n, e in ((n1, e1), (n1, e1), (n2, e2), (n2, e2))]
+    X = rng.normal(size=(B, n1, n2, c)).astype(np.float32)
+    Kp = rng.normal(size=(B, n1, n2)).astype(np.float32)
+    Ke = rng.normal(size=(B, e1, e2)).astype(np.float32)
+    m1 = np.ones((B, e1), bool)
+    m2 = np.ones((B, e2), bool)
+    if valid1 is not None:
+        m1 = np.arange(e1)[None] < np.asarray(valid1)[:, None]
+        m2 = np.arange(e2)[None] < np.asarray(valid2)[:, None]
+        for a in idx[:2]:
+            a[~m1] = 0
+        for a in idx[2:]:
+            a[~m2] = 0
+        Ke = Ke * m1[:, :, None] * m2[:, None, :]
+    return X, Kp, Ke.astype(np.float32), idx, m1, m2
+
+
+def _jax_per_sample(fn, X, Kp, Ke, idx, **kw):
+    return np.stack([np.asarray(fn(
+        jnp.asarray(X[b]), jnp.asarray(Kp[b]), jnp.asarray(Ke[b]),
+        *(jnp.asarray(a[b]) for a in idx), **kw)) for b in range(len(X))])
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+def test_bucket_plain_matches_pallas_interpret_and_xla(rng, transpose, B):
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, B, 16, 16, 64, 64, 8)
+    got = t2n(kb.assoc_matvec_bucket(tt(X), tt(Kp), tt(Ke),
+                                     *(tt(a) for a in idx),
+                                     transpose=transpose))
+    assert got.dtype == np.float32 and got.shape == X.shape
+    want = _jax_per_sample(j_assoc_matvec, X, Kp, Ke, idx,
+                           transpose=transpose)
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = _jax_per_sample(assoc_matvec_pallas, X, Kp, Ke, idx,
+                             transpose=transpose, block_e1=32,
+                             interpret=True)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    own = t2n(t_assoc.assoc_matvec(tt(X), tt(Kp), tt(Ke),
+                                   *(tt(a) for a in idx),
+                                   transpose=transpose))
+    np.testing.assert_allclose(got, own, **TOL)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+def test_large_plain_matches_pallas_large_interpret_and_xla(rng, transpose,
+                                                            B):
+    """C = 5 with block_c = 2: an odd channel count, the last chunk short;
+    n1 != n2 and E1 != E2."""
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, B, 16, 12, 64, 48, 5)
+    got = t2n(kb.assoc_matvec_large(tt(X), tt(Kp), tt(Ke),
+                                    *(tt(a) for a in idx),
+                                    transpose=transpose, block_c=2))
+    want = _jax_per_sample(j_assoc_matvec, X, Kp, Ke, idx,
+                           transpose=transpose)
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = _jax_per_sample(
+        assoc_matvec_pallas_large, X, Kp, Ke, idx, transpose=transpose,
+        block_e1=32, block_e2=16, block_c=2, precision="highest",
+        interpret=True)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    for block_c in (1, 5, 8):
+        other = t2n(kb.assoc_matvec_large(
+            tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx),
+            transpose=transpose, block_c=block_c))
+        np.testing.assert_allclose(other, got, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["bucket", "large"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_padded_slots_are_inert(rng, kernel, masked):
+    """Ragged batch: 40 / 25 / 0 real edges in 64 slots. Padded slots alias
+    node 0 with Ke == 0; with masks they are skipped, without they multiply
+    by zero. Either way the result is that of the real edges alone (the JAX
+    op on the unpadded lists)."""
+    v1, v2 = [40, 25, 0], [33, 64, 10]
+    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 3, 12, 12, 64, 64, 4, v1, v2)
+    fn = kb.assoc_matvec_bucket if kernel == "bucket" \
+        else kb.assoc_matvec_large
+    kw = dict(e1_mask=tt(m1), e2_mask=tt(m2)) if masked else {}
+    got = t2n(fn(tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx),
+                 transpose=True, **kw))
+    for b in range(3):
+        want = np.asarray(j_assoc_matvec(
+            jnp.asarray(X[b]), jnp.asarray(Kp[b]),
+            jnp.asarray(Ke[b, :v1[b], :v2[b]]),
+            idx[0][b, :v1[b]], idx[1][b, :v1[b]],
+            idx[2][b, :v2[b]], idx[3][b, :v2[b]], transpose=True))
+        np.testing.assert_allclose(got[b], want, **TOL)
+    # the pallas kernel on the padded lists agrees too
+    pallas = _jax_per_sample(assoc_matvec_pallas, X, Kp, Ke, idx,
+                             transpose=True, block_e1=32, interpret=True)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_non_finite_feature_at_the_aliased_node(rng):
+    """X[b, 0, 0] = inf is the one place where skipping padded slots and
+    multiplying them by zero differ: without masks 0 * inf = nan reaches
+    Y[b, 0, 0] (as in the plain ops); with masks it does not. Y[b, 0, 0]
+    is not finite either way, and every other cell that does not gather
+    X[b, 0, 0] through a real edge is the same."""
+    v = [30, 30]
+    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 2, 10, 10, 48, 48, 3, v, v)
+    for a in idx:                      # no real edge touches node 0
+        a[:, :30] = np.maximum(a[:, :30], 1)
+    X[:, 0, 0] = np.inf
+    args = (tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx))
+    plain_ops = t_assoc.assoc_matvec(*args, transpose=True)
+    unmasked = kb.assoc_matvec_bucket(*args, transpose=True)
+    masked = kb.assoc_matvec_bucket(*args, transpose=True, e1_mask=tt(m1),
+                                    e2_mask=tt(m2))
+    assert torch.isnan(plain_ops[:, 0, 0]).all()
+    assert torch.isnan(unmasked[:, 0, 0]).all()
+    assert torch.isinf(masked[:, 0, 0]).all()
+    for y in (unmasked, masked, plain_ops):
+        y[:, 0, 0] = 0
+        assert torch.isfinite(y).all()
+    np.testing.assert_allclose(t2n(unmasked), t2n(plain_ops), **TOL)
+    np.testing.assert_allclose(t2n(masked), t2n(plain_ops), **TOL)
+
+
+def test_delaunay_batch_at_model_channels(rng):
+    """What the model gives the kernels: ragged Delaunay pairs in a padded
+    bucket, C = 1 and 17, K^T orientation, masks from the edge counts."""
+    B, N, E = 3, 24, 140
+    for c in (1, 17):
+        X = np.zeros((B, N, N, c), np.float32)
+        Kp = np.zeros((B, N, N), np.float32)
+        Ke = np.zeros((B, E, E), np.float32)
+        idx = np.zeros((4, B, E), np.int32)
+        ne = np.zeros((B, 2), np.int64)
+        for b, (n1, n2) in enumerate(((24, 20), (15, 24), (18, 18))):
+            for g, n in enumerate((n1, n2)):
+                pts = rng.uniform(size=(n, 2)).astype(np.float32) * [320, 240]
+                _, s, d = build_edges(pts, stg="tri")
+                idx[2 * g, b, :len(s)] = s
+                idx[2 * g + 1, b, :len(d)] = d
+                ne[b, g] = len(s)
+            X[b, :n1, :n2] = rng.normal(size=(n1, n2, c))
+            Kp[b, :n1, :n2] = rng.normal(size=(n1, n2))
+            Ke[b, :ne[b, 0], :ne[b, 1]] = rng.normal(size=tuple(ne[b]))
+        m1 = tt(np.arange(E)[None] < ne[:, :1])
+        m2 = tt(np.arange(E)[None] < ne[:, 1:])
+        args = (tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx))
+        want = _jax_per_sample(j_assoc_matvec, X, Kp, Ke, idx, transpose=True)
+        for fn in (kb.assoc_matvec_bucket, kb.assoc_matvec_large):
+            got = t2n(fn(*args, transpose=True, e1_mask=m1, e2_mask=m2))
+            np.testing.assert_allclose(got, want, **TOL)
+        # the dispatcher on CPU tensors takes the plain ops
+        auto = t2n(t_assoc.assoc_matvec_auto(*args, transpose=True,
+                                             e1_mask=m1, e2_mask=m2))
+        np.testing.assert_allclose(auto, want, **TOL)
+
+
+@pytest.mark.parametrize("both", [False, True])
+def test_zero_edge_sides(rng, both):
+    B, n, c = 2, 9, 3
+    e2 = 0 if both else 20
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, B, n, n, 0, e2, c)
+    for fn in (kb.assoc_matvec_bucket, kb.assoc_matvec_large):
+        got = t2n(fn(tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx)))
+        np.testing.assert_allclose(got, Kp[..., None] * X, rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_bf16_features_f32_accumulation(rng):
+    """bf16 X (the JAX kernels' "default" precision): gathered and multiplied
+    from the bf16-rounded values, f32 accumulation and result."""
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, 2, 14, 14, 60, 60, 5)
+    args = (tt(Kp), tt(Ke), *(tt(a) for a in idx))
+    Xb = tt(X).bfloat16()
+    for fn in (kb.assoc_matvec_bucket, kb.assoc_matvec_large):
+        got = fn(Xb, *args, transpose=True)
+        assert got.dtype == torch.float32
+        same = fn(Xb.float(), *args, transpose=True)
+        full = fn(tt(X), *args, transpose=True)
+        scale = float(full.abs().max())
+        assert float((got - same).abs().max()) <= 1e-5 * scale
+        assert float((got - full).abs().max()) <= 2 ** -6 * scale
+    # against the JAX op on bf16 features (gathers and the Ke multiply in
+    # bf16 there: products are rounded once more, 2**-8 relative per term)
+    want = _jax_per_sample(
+        lambda x, *a, **k: j_assoc_matvec(x.astype(jnp.bfloat16), *a, **k),
+        X, Kp, Ke, idx, transpose=True)
+    got = t2n(kb.assoc_matvec_bucket(Xb, *args, transpose=True))
+    assert np.abs(got - want).max() <= 2 ** -6 * np.abs(want).max()
+
+
+def test_plan_is_shared_between_calls_on_the_same_edge_lists(rng):
+    """`plan_bucket` keeps the last plan: the three GNN layers of a forward
+    pass the same index tensors (views of one batch) and share one grouping;
+    other tensors, another orientation or an in-place write make a new one.
+    """
+    _, _, _, idx, m1, m2 = _rand_case(rng, 2, 10, 10, 30, 30, 1, [20, 30],
+                                      [30, 11])
+    both = torch.stack([tt(idx[0]), tt(idx[2])], dim=1)        # (B, 2, E)
+    s1, s2 = both[:, 0], both[:, 1]
+    d1, d2 = tt(idx[1]), tt(idx[3])
+    p = kb.plan_bucket(s1, d1, s2, d2, 10, 10, True, tt(m1), tt(m2))
+    assert p.offs1.dtype == torch.int32 and p.offs1.shape == (2, 11)
+    # runs hold exactly the unmasked slots, stably sorted by out endpoint
+    for b, v in enumerate((20, 30)):
+        assert int(p.offs1[b, -1]) == v
+        order = t2n(p.order1[b, :v])
+        assert sorted(order) == list(range(v))
+        keys = idx[1][b][order]                  # transpose: out1 = dst1
+        assert (np.diff(keys) >= 0).all()
+        for k in np.unique(keys):
+            assert (np.diff(order[keys == k]) > 0).all()
+        assert np.array_equal(t2n(p.ins1[b, :v]), idx[0][b][order])
+    m1t, m2t = tt(m1), tt(m2)
+    p1 = kb.plan_bucket(s1, d1, s2, d2, 10, 10, True, m1t, m2t)
+    assert kb.plan_bucket(both[:, 0], d1, both[:, 1], d2, 10, 10, True, m1t,
+                          m2t) is p1                    # fresh views
+    assert kb.plan_bucket(s1, d1, s2, d2, 10, 10, False, m1t, m2t) is not p1
+    p2 = kb.plan_bucket(s1, d1, s2, d2, 10, 10, True, m1t, m2t)
+    d1[0, 0] = (d1[0, 0] + 1) % 10                      # in-place write
+    p3 = kb.plan_bucket(s1, d1, s2, d2, 10, 10, True, m1t, m2t)
+    assert p3 is not p2 and not torch.equal(p3.order1, p2.order1) \
+        or not torch.equal(p3.offs1, p2.offs1)
+    assert kb.plan_bucket(s1, d1.clone(), s2, d2, 10, 10, True, m1t,
+                          m2t) is not p3
+
+
+def test_wrapper_checks_and_cpu_route(rng, monkeypatch):
+    """On CPU tensors the wrappers take the plain versions and launch
+    nothing; wrong shapes and types raise; a row of X too wide for the
+    bucket kernel's shared memory is refused with a pointer to the other."""
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, 2, 8, 8, 20, 20, 2)
+    args = [tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx)]
+    before = dict(kb.LAUNCHES)
+    for name in ("_launch_bucket", "_launch_large"):
+        monkeypatch.setattr(kb, name, lambda *a: pytest.fail(
+            "a CUDA kernel must not be launched for CPU tensors"))
+    kb.assoc_matvec_bucket(*args)
+    kb.assoc_matvec_large(*args)
+    assert kb.LAUNCHES == before == {"assoc_bucket": 0, "assoc_large": 0}
+    with pytest.raises(TypeError):
+        kb.assoc_matvec_bucket(args[0].double(), *args[1:])
+    with pytest.raises(TypeError):
+        kb.assoc_matvec_bucket(*args[:3], args[3].float(), *args[4:])
+    with pytest.raises(ValueError):
+        kb.assoc_matvec_bucket(args[0][0], *args[1:])           # no batch
+    with pytest.raises(ValueError):
+        kb.assoc_matvec_large(*args[:3], args[3][:, :5], *args[4:])
+    with pytest.raises(ValueError):
+        kb.assoc_matvec_large(*args, block_c=0)
+    assert kb._bucket_rows(64 * 17, 4) == 8
+    assert kb._bucket_rows(256 * 17, 4) == 8
+    assert kb._bucket_rows(600 * 17, 2) == 8          # bf16 rows are half as wide
+    assert 1 <= kb._bucket_rows(600 * 17, 4) < 8
+    with pytest.raises(ValueError, match="assoc_matvec_large"):
+        kb._bucket_rows(4096 * 17, 4)
+
+
+def test_auto_dispatch_on_a_cuda_tensor(monkeypatch):
+    """`ops.assoc.assoc_matvec_auto` on a CUDA tensor: the bucket kernel
+    below CHUNKED_NNZ_THRESHOLD association edge slots per sample, the
+    any-size kernel from there up, and never the plain ops."""
+    calls = []
+    monkeypatch.setattr(t_assoc, "assoc_matvec_bucket",
+                        lambda *a, **k: calls.append(("bucket", k)))
+    monkeypatch.setattr(t_assoc, "assoc_matvec_large",
+                        lambda *a, **k: calls.append(("large", k)))
+    for name in ("assoc_matvec", "assoc_matvec_chunked"):
+        monkeypatch.setattr(t_assoc, name, lambda *a, **k: pytest.fail(
+            "a CUDA tensor must not fall back to the plain ops"))
+    X = types.SimpleNamespace(device=torch.device("cuda", 0))
+    ke = lambda e1, e2: types.SimpleNamespace(shape=(8, e1, e2))
+    t_assoc.assoc_matvec_auto(X, None, ke(384, 384), 1, 2, 3, 4,
+                              transpose=True, e1_mask=5, e2_mask=6)
+    t_assoc.assoc_matvec_auto(X, None, ke(1536, 1536), 1, 2, 3, 4)
+    t_assoc.assoc_matvec_auto(X, None, ke(1000, 1000), 1, 2, 3, 4)
+    t_assoc.assoc_matvec_auto(X, None, ke(999, 1000), 1, 2, 3, 4)
+    assert [c[0] for c in calls] == ["bucket", "large", "large", "bucket"]
+    assert calls[0][1] == dict(transpose=True, e1_mask=5, e2_mask=6)
+    assert t_assoc.CHUNKED_NNZ_THRESHOLD == 1_000_000
+
+
+def _card_case(rng, kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel has no interpret mode")
+    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 3, 64, 64, 384, 384, 17,
+                                        [300, 384, 0], [384, 200, 50])
+    args = [tt(a).cuda() for a in (X, Kp, Ke, *idx)]
+    kw = dict(transpose=True, e1_mask=tt(m1).cuda(), e2_mask=tt(m2).cuda())
+    fn, plain = {
+        "assoc_bucket": (kb.assoc_matvec_bucket,
+                         kb.assoc_matvec_bucket_plain),
+        "assoc_large": (kb.assoc_matvec_large, kb.assoc_matvec_large_plain),
+    }[kernel]
+    before = kb.LAUNCHES[kernel]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES[kernel] == before + 1
+    want = plain(*args, **kw)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, fn(*args, **kw))            # no atomics
+
+
+@pytest.mark.gpu
+def test_bucket_cuda_kernel_matches_plain_on_the_card(rng):
+    """Needs a GPU and nvcc (run there with `pytest -m gpu`); chip_smoke.py
+    makes the same comparison at the evaluation shapes."""
+    _card_case(rng, "assoc_bucket")
+
+
+@pytest.mark.gpu
+def test_large_cuda_kernel_matches_plain_on_the_card(rng):
+    _card_case(rng, "assoc_large")

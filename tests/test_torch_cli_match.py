@@ -244,8 +244,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'fpmatch_tpu'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "new = ['cli.evaluate', 'data.benchmark', 'data.generator', "
+        "'evaluation.metrics', 'kernels.assoc_bucket', 'train.checkpoints', "
+        "'train.losses', 'train.step', 'utils.visualize']\n"
+        "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_loader_workers_import_no_torch():
+    """What a spawned loader worker imports to unpickle its dataset and build
+    samples (the `data` modules and the host-side graph code) pulls in no
+    `torch`: a worker can never create a CUDA context."""
+    code = (
+        "import sys\n"
+        "import fpmatch_tpu_torch.data.pipeline, "
+        "fpmatch_tpu_torch.data.benchmark, fpmatch_tpu_torch.data.dataset, "
+        "fpmatch_tpu_torch.data.generator, "
+        "fpmatch_tpu_torch.data.augmentation\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'fpmatch_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                        capture_output=True, text=True, timeout=300)
