@@ -9,12 +9,22 @@ GPU.
 Phases (each prints its own lines; any failure exits non-zero):
 
   1. device   card name + power limit, torch / CUDA / nvcc versions
-  2. build    every kernel source under fpmatch_tpu_torch/kernels/csrc/
+  2. build    every kernel source under fpmatch_tpu_torch/kernels/csrc/,
+              then kernels.inoculate: x + 1 launched in every library (first
+              and second launch timed, checked bit for bit); the kernel,
+              the plain x + 1 and the library torch.add(x, 1) timed by CUDA
+              events
   3. kernels  assoc_univ_v3 (CUDA) against its plain PyTorch version and
               against the plain ops of ops.assoc (no plan) on the card, at
               the serving shapes; assoc_bucket and assoc_large (CUDA) against
-              theirs at B=8 / N=64 / E=384 and B=2 / N=256 / E=1536; times by
-              CUDA events
+              theirs at B=8 / N=64 / E=384 and B=2 / N=256 / E=1536;
+              assoc_univ (CUDA) against its plain version and against
+              assoc_univ_v3 on n=600 Delaunay pairs at r1=32, r2=128 (C=16;
+              C=1 / 17, both orientations, f32 and bf16), a spill-heavy
+              random graph and a degree-80 star (both kernels); two launches
+              bit-identical; times by CUDA events, each timed case also
+              timing the library call for the same function
+              (torch.sparse.mm of K built as one CSR matrix)
   4. serve    UNIV route (n_max=600, e_max=3840, univ=600) at full model
               width, a few requests through cli.match.match_arrays
   5. parity   one UNIV request against the port's own CPU run (plain kernel
@@ -27,6 +37,10 @@ Phases (each prints its own lines; any failure exits non-zero):
               bit), one evaluate batch against the port's own CPU run
   9. evaluate the same function over batches of 2 at n_max=256, e_max=1536,
               where the aggregations go through assoc_large
+ 10. tune     scripts.tune_univ's sweep, in this process: inoculate, then all
+              12 (block size, precision) rows of assoc_univ at n=600, C=16,
+              each held against the plain version and checked bit-identical
+              over two calls; its times are K4's in the kernels line
 
 Weights are initialised from a seed, images and keypoints are made from a
 seed; nothing is read from disk but the package itself and what the script
@@ -58,10 +72,13 @@ from fpmatch_tpu_torch.data.generator import generate_synthetic_dataset
 from fpmatch_tpu_torch.data.pipeline import DataLoader, PairDataset
 from fpmatch_tpu_torch.kernels import _build
 from fpmatch_tpu_torch.kernels import assoc_bucket as k23
+from fpmatch_tpu_torch.kernels import assoc_univ as k4
 from fpmatch_tpu_torch.kernels import assoc_univ_v3 as k1
+from fpmatch_tpu_torch.kernels import inoculate as k5
 from fpmatch_tpu_torch.models.ngm import build_model
 from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_matvec,
                                          assoc_matvec_chunked)
+from fpmatch_tpu_torch.scripts import tune_univ
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -81,20 +98,23 @@ def fail(msg):
     sys.exit(1)
 
 
+COUNTS = (k1.LAUNCHES, k23.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES)
+
+
 def reset_counts():
     """Every kernel's launch count to 0 (done just before a path is driven)."""
-    for counts in (k1.LAUNCHES, k23.LAUNCHES):
+    for counts in COUNTS:
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
-    return {**k1.LAUNCHES, **k23.LAUNCHES}
+    return {k: v for counts in COUNTS for k, v in counts.items()}
 
 
 def restore_counts(saved):
     """Launches made to compare or to profile do not count."""
-    for counts in (k1.LAUNCHES, k23.LAUNCHES):
+    for counts in COUNTS:
         for k in counts:
             counts[k] = saved[k]
 
@@ -121,12 +141,54 @@ def phase_device():
 
 # ------------------------------------------------------------------- 2 build
 def phase_build():
+    """Build every source, then `inoculate` twice: the first and the second
+    launch of x + 1 in each library (each checked bit for bit against the
+    plain version inside `inoculate`). Returns K5's row."""
     t = time.time()
     libs = _build.build(verbose=True)
     for name in libs:
         _build.load(name)
     say(f"[2 build] {len(libs)} source(s) {sorted(libs)} built with nvcc "
         f"for sm_90a and loaded in {time.time() - t:.1f} s")
+    first = k5.inoculate()
+    second = k5.inoculate()
+    if sorted(first) != sorted(libs):
+        fail(f"inoculate reached {sorted(first)}, not every library")
+    for name in sorted(libs):
+        say(f"[2 build] inoculate {name}: y == x + 1 exactly; first launch "
+            f"{first[name] * 1e3:.3f} ms, second {second[name] * 1e3:.3f} ms "
+            f"(host clock, synchronised)")
+    # one launch of the (8, 128) tile by CUDA events: 4 KB in, 4 KB out.
+    # Each call allocates its output; all three are timed behind an L2
+    # flush, which keeps the host's launch path (ctypes, allocation) out of
+    # the readings
+    x = torch.randn(k5.SHAPE, device=DEV)
+    lib = _build.load("assoc_univ")
+    y = k5.launch(lib, x)
+    y_lib = torch.add(x, 1.0)
+    torch.cuda.synchronize()
+    err = float((y - k5.inoculate_plain(x)).abs().max())
+    if not torch.equal(y_lib, y):
+        fail("torch.add(x, 1) differs from the inoculate kernel")
+    nbytes = 2 * 4 * x.numel()
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = x.numel() / PEAK_F32_FLOPS * 1e3
+    flush = tune_univ.l2_flush(DEV)
+    row = {"shape": list(k5.SHAPE), "err_vs_plain": err,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: k5.launch(lib, x), reps=50, flush=flush),
+           "plain_ms": time_ms(lambda: k5.inoculate_plain(x), reps=50,
+                               flush=flush),
+           "library_ms": time_ms(lambda: torch.add(x, 1.0), reps=50,
+                                 flush=flush),
+           "first_ms": {k: v * 1e3 for k, v in first.items()},
+           "second_ms": {k: v * 1e3 for k, v in second.items()},
+           "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if err != 0.0:
+        fail("inoculate is not exactly x + 1")
+    say("[2 build] " + json.dumps(row))
+    return row
 
 
 # ----------------------------------------------------------------- 3 kernels
@@ -141,25 +203,48 @@ def relerr(a, b):
 
 
 def time_ms(fn, reps=20, flush=None):
-    """Median CUDA-event time of one call; `flush` (a big tensor) is
-    overwritten before each call so the call finds the L2 cache cold. The
-    first event is recorded behind the flush, so the host's time to reach the
-    launch passes while the flush runs and is not in the reading."""
-    for _ in range(3):
-        fn()
+    """Median CUDA-event time of one call: tune_univ's helper on the card
+    (`flush`, a big tensor, is overwritten before each call)."""
+    return tune_univ.time_ms(fn, DEV, reps, flush)
+
+
+def sparse_library(X, Kp, Ke, out1, in1, out2, in2, n_e):
+    """The library call for the association matvec: K (or K^T, by the roles
+    given) as one CSR matrix of (B·N1·N2)², block diagonal over the batch,
+    with Ke[b, e1, e2] at (out1·N2 + out2, in1·N2 + in2) for the real edges
+    (n_e[b] = real E1, E2 of sample b) and Kp on the diagonal, times vec X by
+    `torch.sparse.mm`. K is built here once; the returned callable (the one
+    call that is timed) gives (B, N1, N2, C) float32."""
+    B, N1, N2, C = X.shape
+    M = B * N1 * N2
+    n_e = torch.as_tensor(np.asarray(n_e), device=DEV)
+    keep = ((torch.arange(Ke.shape[1], device=DEV)[None, :, None]
+             < n_e[:, 0, None, None])
+            & (torch.arange(Ke.shape[2], device=DEV)[None, None, :]
+               < n_e[:, 1, None, None]))
+    base = torch.arange(B, device=DEV)[:, None, None] * (N1 * N2)
+    at = lambda a, b: (base + a.long()[:, :, None] * N2
+                       + b.long()[:, None, :])[keep]
+    diag = torch.arange(M, device=DEV)
+    idx = torch.stack([torch.cat([at(out1, out2), diag]),
+                       torch.cat([at(in1, in2), diag])])
+    vals = torch.cat([Ke[keep], Kp.reshape(-1)])
+    K = torch.sparse_coo_tensor(idx, vals, (M, M), check_invariants=False
+                                ).coalesce().to_sparse_csr()
+    del idx, vals, keep
+    Xf = X.float().reshape(M, C)
+    return lambda: torch.sparse.mm(K, Xf).reshape(B, N1, N2, C)
+
+
+def library_case(r, call, want, flush):
+    """Hold the library call against the plain version (it must compute the
+    same function), then time it: `library_ms` in the row `r`."""
+    err = relerr(call(), want)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    if not err <= 1e-5:
+        fail(f"the library call disagrees with the plain version: {err:.3e}")
+    r.update(library_err_vs_plain=err,
+             library_ms=time_ms(call, reps=10, flush=flush))
 
 
 def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
@@ -230,6 +315,10 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
                     pad(d2), transpose=transpose), reps=5, flush=flush),
             bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        roles = (d1, s1, d2, s2) if transpose else (s1, d1, s2, d2)
+        lib = sparse_library(X[None], Kp[None], Ke[None],
+                             *(pad(a) for a in roles), [[e1r, e2r]])
+        library_case(r, lambda: lib()[0], plain, flush)
     return r
 
 
@@ -321,6 +410,12 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
     flops = 2.0 * C * e_real + 2.0 * B * N * N * C
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
+    # the library call computes what both kernels compute: timed once
+    lib_row = {}
+    if timed:
+        roles = (d1, s1, d2, s2) if transpose else (s1, d1, s2, d2)
+        library_case(lib_row, sparse_library(X, Kp, Ke, *roles, n_e), ops,
+                     flush)
     rows = []
     for name, kern, plain in (
             ("assoc_bucket", k23.assoc_matvec_bucket,
@@ -365,7 +460,8 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
                                          transpose=transpose),
                     reps=5, flush=flush),
                 bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                **lib_row)
         rows.append(r)
     return rows
 
@@ -407,6 +503,168 @@ def phase_kernels_bucket():
     restore_counts(saved)
     del flush
     return rows, plan_ms
+
+
+# ------------------------------------------------ 3c blocked UNIV kernel (K4)
+def univ_bound(N, C, E1, E2, plan):
+    """Least work of the function for THIS input (K1's formula): X, Kp, Ke
+    and the kernel's per-block tables read once, Y written once; 2 flops per
+    (association edge, channel) + the Kp term. KeR, which the design
+    materialises, is not part of it."""
+    I, J = plan.n1p // plan.r1, plan.n2p // plan.r2
+    tables = 4 * (2 * I * plan.b1 + I * (plan.r1 + 1) + 2 * J * plan.b2
+                  + J * (plan.r2 + 1))
+    nbytes = 4 * (2 * N * N * C + N * N + E1 * E2) + tables
+    flops = 2.0 * C * E1 * E2 + 2.0 * N * N * C
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def univ_case(tag, pts1, pts2, edges, X, Kp, Ke, r1, r2, transpose, prec,
+              flush=None):
+    """K4 against its plain version (same inputs, same rounding) and, in
+    f32, against K1 on the same inputs; two launches bit-identical. With
+    `flush`, the times of gather_ke_blocks, the plain version, K1 and the
+    library call on the same inputs (the wrapper and the kernel alone are
+    timed by the sweep, phase 10)."""
+    n, C = X.shape[0], X.shape[2]
+    hp = k4.plan_univ(pts1, pts2, *edges, r1=r1, r2=r2, transpose=transpose)
+    plan = hp.to(DEV)
+    dt = k4.compute_dtype(X, prec)
+    KeR = k4.gather_ke_blocks(Ke, plan, dtype=dt)
+    got = k4.assoc_matvec_univ(X, Kp, Ke, plan, KeR, precision=prec)
+    torch.cuda.synchronize()
+    again = k4.assoc_matvec_univ(X, Kp, Ke, plan, KeR, precision=prec)
+    want = k4.assoc_matvec_univ_plain(X, Kp, Ke, plan, KeR, precision=prec)
+    torch.cuda.synchronize()
+    r = {"case": tag, "n": n, "C": C, "r1": r1, "r2": r2,
+         "transpose": transpose, "prec": prec, "E1": len(edges[0]),
+         "E2": len(edges[2]), "b1": hp.b1, "b2": hp.b2,
+         "spill1": len(hp.spill1), "spill2": len(hp.spill2),
+         "err_vs_plain": relerr(got, want),
+         "max_abs_err": float((got - want).abs().max()),
+         "bit_reproducible": bool(torch.equal(got, again))}
+    if prec == "highest":
+        p1 = k1.plan_univ_v3(n, n, *edges, transpose=transpose).to(DEV)
+        r["err_vs_k1"] = relerr(got, k1.assoc_matvec_univ_v3(X, Kp, Ke, p1))
+    for k in ("err_vs_plain", "err_vs_k1"):
+        if k in r and not r[k] <= 1e-5:
+            fail(f"assoc_univ {k} = {r[k]:.3e} > 1e-5 at {r}")
+    if not r["bit_reproducible"]:
+        fail(f"assoc_univ: two launches on the same inputs differ at {r}")
+    if not torch.isfinite(got).all():
+        fail("assoc_univ produced non-finite values")
+    if flush is not None:
+        r.update(
+            gather_ms=time_ms(lambda: k4.gather_ke_blocks(Ke, plan, dt),
+                              flush=flush),
+            plain_ms=time_ms(lambda: k4.assoc_matvec_univ_plain(
+                X, Kp, Ke, plan, KeR, precision=prec), reps=5, flush=flush),
+            k1_ms=time_ms(lambda: k1.assoc_matvec_univ_v3(X, Kp, Ke, p1),
+                          flush=flush),
+            ker_mb=KeR.numel() * KeR.element_size() / 1e6,
+            **univ_bound(n, C, len(edges[0]), len(edges[2]), plan))
+        s1, d1, s2, d2 = (torch.as_tensor(a, device=DEV)[None]
+                          for a in edges)
+        roles = (d1, s1, d2, s2) if transpose else (s1, d1, s2, d2)
+        lib = sparse_library(X[None], Kp[None], Ke[None], *roles,
+                             [[len(edges[0]), len(edges[2])]])
+        library_case(r, lambda: lib()[0], want, flush)
+    return r
+
+
+def star_edges(n_leaves):
+    """Both directions between node 0 and nodes 1..n_leaves: degree
+    n_leaves at node 0 in either orientation."""
+    k = np.arange(1, n_leaves + 1, dtype=np.int32)
+    z = np.zeros(n_leaves, np.int32)
+    return np.concatenate([k, z]), np.concatenate([z, k])
+
+
+def phase_kernels_univ():
+    """K4 at tune_univ's inputs (n=600 Delaunay pairs) at (32, 128) — the
+    other five block sizes are held against the plain version by the sweep,
+    phase 10 — a spill-heavy random graph and a degree-80 star; K1 on the
+    star too (its repaired slot limit). Comparison launches do not count."""
+    saved = read_counts()
+    flush = tune_univ.l2_flush(DEV)
+    inp = tune_univ.make_inputs(DEV, n=600, c=16, seed=SEED)
+    r = univ_case("delaunay", inp.pts1, inp.pts2, inp.edges, inp.X, inp.Kp,
+                  inp.Ke, 32, 128, True, "highest", flush)
+    rows = [r]
+    say("[3 kernels] " + json.dumps(r))
+    for C in (1, 17):
+        inp = tune_univ.make_inputs(DEV, n=600, c=C, seed=SEED + C)
+        for transpose in (True, False):
+            for prec in ("highest", "default"):
+                r = univ_case("delaunay", inp.pts1, inp.pts2, inp.edges,
+                              inp.X, inp.Kp, inp.Ke, 32, 128, transpose,
+                              prec)
+                rows.append(r)
+                say("[3 kernels] " + json.dumps(r))
+    rng = np.random.default_rng(SEED + 4)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    # random edges: nearly every graph-1 edge leaves its window at r1 = 8
+    n, m = 600, 1800
+    edges = tuple(rng.integers(0, n, m).astype(np.int32) for _ in range(4))
+    pts = rng.uniform(size=(2, n, 2)).astype(np.float32)
+    X = torch.randn(n, n, 4, device=DEV, generator=g)
+    Kp = torch.randn(n, n, device=DEV, generator=g)
+    Ke = torch.randn(m, m, device=DEV, generator=g)
+    r = univ_case("random graph", pts[0], pts[1], edges, X, Kp, Ke, 8, 128,
+                  True, "highest")
+    rows.append(r)
+    say("[3 kernels] " + json.dumps(r))
+    # degree-80 star in graph 1: K1 walks node 0's 80 slots in two chunks
+    n = 90
+    s1, d1 = star_edges(80)
+    _, s2, d2 = build_edges(rng.uniform(8, 232, size=(n, 2)))
+    pts = rng.uniform(size=(2, n, 2)).astype(np.float32)
+    X = torch.randn(n, n, 17, device=DEV, generator=g)
+    Kp = torch.randn(n, n, device=DEV, generator=g)
+    Ke = torch.randn(len(s1), len(s2), device=DEV, generator=g)
+    for transpose in (True, False):
+        p1 = k1.plan_univ_v3(n, n, s1, d1, s2, d2, transpose=transpose)
+        if p1.s1 != 80:
+            fail(f"the star's row has {p1.s1} slots, not 80")
+        p1 = p1.to(DEV)
+        a = k1.assoc_matvec_univ_v3(X, Kp, Ke, p1)
+        torch.cuda.synchronize()
+        b = k1.assoc_matvec_univ_v3(X, Kp, Ke, p1)
+        e = relerr(a, k1.assoc_matvec_univ_v3_plain(X, Kp, Ke, p1))
+        say(f"[3 kernels] assoc_univ_v3 degree-80 star, transpose="
+            f"{transpose}: S1={p1.s1}, err vs plain {e:.2e}, "
+            f"bit-identical {bool(torch.equal(a, b))}")
+        if not e <= 1e-5 or not torch.equal(a, b):
+            fail("assoc_univ_v3 disagrees on the degree-80 star")
+        r = univ_case("degree-80 star", pts[0], pts[1], (s1, d1, s2, d2), X,
+                      Kp, Ke, 8, 128, transpose, "highest")
+        rows.append(r)
+        say("[3 kernels] " + json.dumps(r))
+    # zero-edge sides: graph 1 without edges (every slot a pad, b1 = 8),
+    # then neither graph: the result is Kp X
+    n, C = 130, 4
+    empty = np.zeros(0, np.int32)
+    _, s2, d2 = build_edges(rng.uniform(8, 232, size=(n, 2)))
+    pts = rng.uniform(size=(2, n, 2)).astype(np.float32)
+    X = torch.randn(n, n, C, device=DEV, generator=g)
+    Kp = torch.randn(n, n, device=DEV, generator=g)
+    for (a, b) in ((s2, d2), (empty, empty)):
+        Ke = torch.zeros(0, len(a), device=DEV)
+        plan = k4.plan_univ(pts[0], pts[1], empty, empty, a, b, r1=8,
+                            r2=128, transpose=True).to(DEV)
+        got = k4.assoc_matvec_univ(X, Kp, Ke, plan)
+        torch.cuda.synchronize()
+        e = relerr(got, Kp[..., None] * X)
+        say(f"[3 kernels] assoc_univ zero-edge side, E2={len(a)}: "
+            f"b1={plan.b1} b2={plan.b2}, err vs Kp*X = {e:.2e}")
+        if not e <= 1e-6:
+            fail("assoc_univ zero-edge case disagrees with the Kp diagonal")
+    restore_counts(saved)
+    del flush
+    return rows
 
 
 # ------------------------------------------------------------------- serving
@@ -484,7 +742,7 @@ def phase_serve_univ(model):
     say(f"[4 serve univ] kernel launches on the main path: {launches} "
         f"(expected {want} of assoc_univ_v3: one per GNN layer per request)")
     if launches != {"assoc_univ_v3": want, "assoc_bucket": 0,
-                    "assoc_large": 0}:
+                    "assoc_large": 0, "assoc_univ": 0, "inoculate": 0}:
         fail("the UNIV route did not go through the assoc_univ_v3 kernel "
              "(and no other) once per GNN layer")
     say(f"[4 serve univ] wall ms per request after the first: "
@@ -798,20 +1056,46 @@ def phase_evaluate_large(root, index_dir):
     return launches
 
 
-def kernel_entry(name, rows, launches, replaces, pick, shape_keys):
+# ------------------------------------------------------------------ 10 tune
+def phase_tune():
+    """scripts.tune_univ's sweep, in this process, as its CLI runs it: the
+    warm-up of every library, then 12 rows of K4 at n=600, C=16."""
+    n_libs = len(_build.sources())
+    reset_counts()
+    t = time.time()
+    rows = tune_univ.sweep("cuda", emit=lambda line: say("[10 tune] " + line))
+    launches = read_counts()
+    say(f"[10 tune] {len(rows)} rows in {time.time() - t:.1f} s; kernel "
+        f"launches on the path: {launches}")
+    if len(rows) != len(tune_univ.CONFIGS) * len(tune_univ.PRECS):
+        fail("the sweep did not produce one row per (config, precision)")
+    for r in rows:
+        if not r["err_vs_plain"] <= 1e-5:
+            fail(f"tune row disagrees with the plain version: {r}")
+        if not r["bit_identical"]:
+            fail(f"tune row: two calls on the same inputs differ: {r}")
+    if launches["inoculate"] != n_libs or launches["assoc_univ"] == 0 or \
+            launches["assoc_univ_v3"] != 0:
+        fail(f"tune: expected {n_libs} inoculate launches and assoc_univ "
+             f"launches, no assoc_univ_v3")
+    best = max(rows, key=lambda r: r["edges_per_s"])
+    say(f"[10 tune] best: {json.dumps(best)}")
+    return launches, rows
+
+
+def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows, every timed shape."""
     timed = [r for r in rows if "ms" in r]
     main = next(r for r in timed if pick(r))
     return {
-        "name": name, "route": "cuda", "source": k23.SOURCE
-        if name != "assoc_univ_v3" else k1.SOURCE, "replaces": replaces,
-        "launches": launches,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_rel_err": max(r["err_vs_plain"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None,
+        "library_ms": main["library_ms"],
         "shapes": [{k: r[k] for k in shape_keys} for r in timed]}
 
 
@@ -825,9 +1109,10 @@ def main():
     except ImportError:
         say("[1 device] matplotlib not installed: cli.evaluate's plots "
             "cannot be drawn here (not on the device path)")
-    phase_build()
+    row5 = phase_build()
     rows1 = phase_kernels()
     rows23, plan_ms = phase_kernels_bucket()
+    rows4 = phase_kernels_univ()
 
     cfg = cli_config(600, 3840, 600)
     t = time.time()
@@ -863,28 +1148,53 @@ def main():
         say(f"[9 evaluate large] synthetic test split (2 fingers x 2 x 2, "
             f"320 pores) written in {secs:.1f} s")
         launches3 = phase_evaluate_large(f"{tmp}/large", f"{tmp}/index")
+    launches4, rows10 = phase_tune()
+    # the sweep times K4's (32, 128) f32 row; phase 3 the rest of that row
+    main4 = next(r for r in rows4 if "bound_ms" in r)
+    main4.update(next({k: r[k] for k in ("ms", "kernel_ms", "spill_ms")}
+                      for r in rows10 if (r["r1"], r["r2"], r["prec"])
+                      == (main4["r1"], main4["r2"], main4["prec"])))
 
     keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "ms_warm_l2", "ms_bf16",
-             "plain_ms", "noplan_ms", "bound_ms", "bound_by", "bytes",
-             "flops")
+             "plain_ms", "noplan_ms", "library_ms", "bound_ms", "bound_by",
+             "bytes", "flops")
     keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "ms_warm_l2",
-              "ms_bf16", "plain_ms", "ops_ms", "bound_ms", "bound_by",
-              "bytes", "flops")
+              "ms_bf16", "plain_ms", "ops_ms", "library_ms", "bound_ms",
+              "bound_by", "bytes", "flops")
+    keys4 = ("n", "C", "r1", "r2", "prec", "b1", "b2", "spill1", "spill2",
+             "ker_mb", "ms", "kernel_ms", "spill_ms", "gather_ms",
+             "plain_ms", "k1_ms", "library_ms", "bound_ms", "bound_by",
+             "bytes", "flops")
+    keys5 = ("shape", "ms", "plain_ms", "library_ms", "first_ms",
+             "second_ms", "bound_ms", "bound_by", "bytes")
     of = lambda name: [r for r in rows23 if r["kernel"] == name]
     kernels = {"kernels": [
-        kernel_entry("assoc_univ_v3", rows1, launches1["assoc_univ_v3"],
-                     k1.REPLACES, lambda r: r["C"] == 17, keys1),
+        kernel_entry("assoc_univ_v3", k1.SOURCE, rows1,
+                     launches1["assoc_univ_v3"], k1.REPLACES,
+                     lambda r: r["C"] == 17, keys1),
         # each at the shape its main path gives it
-        kernel_entry("assoc_bucket", of("assoc_bucket"),
+        kernel_entry("assoc_bucket", k23.SOURCE, of("assoc_bucket"),
                      launches2["assoc_bucket"],
                      k23.REPLACES["assoc_bucket"],
                      lambda r: (r["N"], r["C"]) == (64, 17), keys23),
-        kernel_entry("assoc_large", of("assoc_large"),
+        kernel_entry("assoc_large", k23.SOURCE, of("assoc_large"),
                      launches3["assoc_large"], k23.REPLACES["assoc_large"],
-                     lambda r: (r["N"], r["C"]) == (256, 17), keys23)]}
-    # the grouping prologue both wrappers share, once per batch
-    for k in kernels["kernels"][1:]:
+                     lambda r: (r["N"], r["C"]) == (256, 17), keys23),
+        # ms: the whole wrapper with KeR given, as tune_univ times it
+        kernel_entry("assoc_univ", k4.SOURCE, rows4,
+                     launches4["assoc_univ"], k4.REPLACES,
+                     lambda r: (r["r1"], r["r2"]) == (32, 128), keys4),
+        kernel_entry("inoculate", k5.SOURCE, [row5],
+                     launches4["inoculate"], k5.REPLACES, lambda r: True,
+                     keys5)]}
+    # the grouping prologue the bucket wrappers share, once per batch
+    for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
+    kernels["kernels"][3]["sweep"] = [
+        {k: r[k] for k in ("r1", "r2", "prec", "b1", "b2", "spill", "ms",
+                           "kernel_ms", "spill_ms", "edges_per_s",
+                           "err_vs_plain")}
+        for r in rows10]
     say(json.dumps(kernels))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")

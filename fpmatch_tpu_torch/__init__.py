@@ -22,6 +22,7 @@ as their JAX counterparts:
   utils/    match drawings
   cli/      entry points (single-pair serving: `cli.match`; batched
             verification evaluation: `cli.evaluate`)
+  scripts/  the block-size sweep of the blocked UNIV kernel (`tune_univ`)
   convert   Flax variable tree (as numpy) -> state_dict
 
 Where the JAX package lifts single-pair functions with vmap, this package is

@@ -2,10 +2,12 @@
 
 Every `*.cu` under `kernels/csrc/` has a plain C interface and becomes one
 shared library, compiled with `nvcc` for sm_90a at first use and loaded with
-`ctypes` (no PyTorch headers: the build takes seconds). Libraries go into a
-git-ignored `build/` directory at the repository root, keyed by a hash of the
-source, so an unchanged source is compiled once per checkout. A build or a
-load that fails raises; nothing falls back to another implementation.
+`ctypes` (no PyTorch headers: the build takes seconds). Every source includes
+the shared header `csrc/common.cuh`. Libraries go into a git-ignored `build/`
+directory at the repository root, keyed by a hash of the source, of every
+`csrc/*.cuh` header and of the flags, so an unchanged tree is compiled once per
+checkout and an edited header never leaves a stale library behind. A build or
+a load that fails raises; nothing falls back to another implementation.
 """
 from __future__ import annotations
 
@@ -47,10 +49,11 @@ def sources() -> List[str]:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                       ).hexdigest()[:12]
-    return build_dir() / f"lib{name}_{tag}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, verbose: bool = False
@@ -94,6 +97,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         lib.fpm_cuda_error_string.restype = ctypes.c_char_p
         lib.fpm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fpm_inoculate.restype = ctypes.c_int
+        lib.fpm_inoculate.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_void_p]
         _LIBS[name] = lib
     return lib
 

@@ -18,10 +18,11 @@ the accumulator and the result stay f32).
 
 Re-thought for a GPU: each graph's edges are grouped once by their scatter
 endpoint (`plan_bucket`: a stable sort + counts + cumsum on the device, CSR
-per sample; index bookkeeping, remembered for the last set of edge lists so
-the three GNN layers of one forward share it), and every output cell gathers
-and reduces its own terms — no one-hot matmuls, no transposed layout, no
-atomics, so the order of the sum is fixed and two runs give the same bits.
+per sample; index bookkeeping, remembered for the last two sets of edge
+lists so the three GNN layers of one forward share it), and every output
+cell gathers and reduces its own terms — no one-hot matmuls, no transposed
+layout, no atomics, so the order of the sum is fixed and two runs give the
+same bits.
 Duplicate edges and self-loops are ordinary members of a run.
 
 Padded slots: with `e1_mask` / `e2_mask` (True = real edge; what the model
@@ -41,6 +42,7 @@ the TPU kernels they have no backward of their own.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -87,7 +89,11 @@ def _csr(out, inn, n: int, mask):
             inn.long().gather(1, order).int().contiguous(), offs)
 
 
-_memo: Dict[str, object] = {"key": None, "held": None, "plan": None}
+# the plans of the last two calls: key -> (the tensors it was made from,
+# plan). Two because `assoc_matvec_univ`'s two spill terms alternate from one
+# call to the next; a forward's GNN layers need one.
+_memo: "OrderedDict[tuple, tuple]" = OrderedDict()
+_MEMO_SIZE = 2
 
 
 def _version(t: torch.Tensor) -> int:
@@ -101,22 +107,27 @@ def plan_bucket(src1, dst1, src2, dst2, n1: int, n2: int,
                 ) -> BucketPlan:
     """Group both edge lists by scatter endpoint (device ops, no host sync).
 
-    The plan of the last call is kept, together with the tensors it was made
-    from (so their memory cannot be reused while it is kept), and returned
-    again when the same tensors — same storage, shape, strides and version
-    counter — come back: the GNN layers of one forward share one plan."""
+    The plans of the last two calls are kept, each together with the
+    tensors it was made from (so their memory cannot be reused while it is
+    kept), and returned again when the same tensors — same storage, shape,
+    strides and version counter — come back: the GNN layers of one forward
+    share one plan, and so do the two spill terms of `assoc_matvec_univ`
+    from one call to the next."""
     given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
     key = (n1, n2, transpose) + tuple(
         None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
                                 _version(t), t.dtype, t.device)
         for t in given)
-    if _memo["key"] == key:
-        return _memo["plan"]
+    if key in _memo:
+        _memo.move_to_end(key)
+        return _memo[key][1]
     out1, in1, out2, in2 = ((dst1, src1, dst2, src2) if transpose
                             else (src1, dst1, src2, dst2))
     plan = BucketPlan(n1, n2, *_csr(out1, in1, n1, e1_mask),
                       *_csr(out2, in2, n2, e2_mask))
-    _memo.update(key=key, held=given, plan=plan)
+    _memo[key] = (given, plan)
+    if len(_memo) > _MEMO_SIZE:
+        _memo.popitem(last=False)
     return plan
 
 

@@ -46,9 +46,6 @@ SOURCE = "fpmatch_tpu_torch/kernels/csrc/assoc_univ_v3.cu"
 # launches of the CUDA kernel, counted where the wrapper launches it
 LAUNCHES: Dict[str, int] = {"assoc_univ_v3": 0}
 
-_MAX_S1 = 64      # kMaxS1 of the CUDA source
-
-
 class UnivPlanV3(NamedTuple):
     """Host-built slot tables (numpy) of one pair; `.to(device)` makes the
     tensors the kernel and the plain version read."""
@@ -121,9 +118,6 @@ def plan_univ_v3(n1: int, n2: int, src1, dst1, src2, dst2,
         out1, in1, out2, in2 = src1, dst1, src2, dst2
     in1_slot, e1_slot = _slots(out1, in1, n1)
     in2_slot, e2_slot = _slots(out2, in2, n2)
-    if in1_slot.shape[1] > _MAX_S1:
-        raise ValueError(f"graph-1 max degree {in1_slot.shape[1]} exceeds the "
-                         f"kernel's slot limit {_MAX_S1}")
     return UnivPlanV3(n1=n1, n2=n2, s1=in1_slot.shape[1],
                       s2=in2_slot.shape[1], transpose=transpose,
                       in1_slot=in1_slot, e1_slot=e1_slot,

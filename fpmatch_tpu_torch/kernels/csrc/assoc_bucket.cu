@@ -38,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -259,8 +261,4 @@ extern "C" int fpm_assoc_large_bf16(FPM_LARGE_ARGS) {
   return launch_large<__nv_bfloat16>(X, Ke, order1, ins1, offs1, order2, ins2,
                                      offs2, Y, B, N1, N2, C, E1, E2, block_c,
                                      stream);
-}
-
-extern "C" const char* fpm_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }

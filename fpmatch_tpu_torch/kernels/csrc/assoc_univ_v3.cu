@@ -26,11 +26,17 @@
 // Design: one block per output row i1 and a tile of the flattened (i2, c)
 // axis; one thread per (i2, c). The C threads of one i2 read the same Ke
 // element (a broadcast) and C consecutive X values (coalesced). The row's S1
-// slots are staged in shared memory once per block. No shared-memory tiling
-// of X or Ke, no cp.async / TMA yet.
+// slots are staged in shared memory, all at once up to kMaxS1 and kMaxS1 at
+// a time beyond (a second instantiation, so rows of ordinary degree run the
+// single-stage code), so no degree is too large; the sum runs over the
+// chunks in order, then over the S2 slots, then over the chunk's slots — a
+// fixed order, so two launches give the same bits.
+// No shared-memory tiling of X or Ke, no cp.async / TMA yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -42,7 +48,33 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// The row's terms over `na` staged graph-1 slots, added to `acc` in a fixed
+// order: S2 slots outer, the staged slots inner.
 template <typename XT>
+__device__ __forceinline__ float slot_terms(
+    const XT* __restrict__ X, const float* __restrict__ Ke,
+    const int* __restrict__ in2_slot, const int* __restrict__ e2_slot,
+    const int* sh_in1, const int* sh_e1, int na, int i2, int c, int C,
+    int S2, long long row_elems, long long ke_stride, float acc) {
+  for (int b = 0; b < S2; ++b) {
+    const int e2 = e2_slot[(long long)i2 * S2 + b];
+    if (e2 < 0) continue;
+    const long long col_off =
+        (long long)in2_slot[(long long)i2 * S2 + b] * C + c;
+    for (int a = 0; a < na; ++a) {
+      const int e1 = sh_e1[a];
+      if (e1 < 0) continue;
+      const float ke = Ke[(long long)e1 * ke_stride + e2];
+      const float x = to_f32(X[(long long)sh_in1[a] * row_elems + col_off]);
+      acc = fmaf(ke, x, acc);
+    }
+  }
+  return acc;
+}
+
+// kChunked: the row has more than kMaxS1 slots and they pass through shared
+// memory kMaxS1 at a time; otherwise all are staged at once.
+template <typename XT, bool kChunked>
 __global__ void assoc_univ_v3_kernel(
     const XT* __restrict__ X,          // (N1, N2, C)
     const float* __restrict__ Kp,      // (N1, N2)
@@ -56,32 +88,32 @@ __global__ void assoc_univ_v3_kernel(
   __shared__ int sh_in1[kMaxS1];
   __shared__ int sh_e1[kMaxS1];
   const int i1 = blockIdx.y;
-  for (int a = threadIdx.x; a < S1; a += blockDim.x) {
-    sh_in1[a] = in1_slot[(long long)i1 * S1 + a];
-    sh_e1[a] = e1_slot[(long long)i1 * S1 + a];
-  }
-  __syncthreads();
-
   const int flat = blockIdx.x * blockDim.x + threadIdx.x;   // i2 * C + c
-  if (flat >= N2 * C) return;
-  const int i2 = flat / C;
-  const int c = flat - i2 * C;
+  const bool live = flat < N2 * C;
+  const int i2 = live ? flat / C : 0;
+  const int c = live ? flat - i2 * C : 0;
   const long long row_elems = (long long)N2 * C;
 
   float acc = 0.0f;
-  for (int b = 0; b < S2; ++b) {
-    const int e2 = e2_slot[(long long)i2 * S2 + b];
-    if (e2 < 0) continue;
-    const long long col_off =
-        (long long)in2_slot[(long long)i2 * S2 + b] * C + c;
-    for (int a = 0; a < S1; ++a) {
-      const int e1 = sh_e1[a];
-      if (e1 < 0) continue;
-      const float ke = Ke[(long long)e1 * ke_stride + e2];
-      const float x = to_f32(X[(long long)sh_in1[a] * row_elems + col_off]);
-      acc = fmaf(ke, x, acc);
+  for (int a0 = 0; a0 < S1; a0 += kMaxS1) {
+    const int na = kChunked ? min(kMaxS1, S1 - a0) : S1;
+    if (kChunked && a0 > 0) __syncthreads();   // previous chunk consumed
+    for (int a = threadIdx.x; a < na; a += blockDim.x) {
+      sh_in1[a] = in1_slot[(long long)i1 * S1 + a0 + a];
+      sh_e1[a] = e1_slot[(long long)i1 * S1 + a0 + a];
     }
+    __syncthreads();
+    if (!kChunked) {
+      if (!live) return;
+      acc = slot_terms(X, Ke, in2_slot, e2_slot, sh_in1, sh_e1, na, i2, c,
+                       C, S2, row_elems, ke_stride, acc);
+      break;
+    }
+    if (live)
+      acc = slot_terms(X, Ke, in2_slot, e2_slot, sh_in1, sh_e1, na, i2, c,
+                       C, S2, row_elems, ke_stride, acc);
   }
+  if (!live) return;
   const long long o = (long long)i1 * row_elems + flat;
   Y[o] = fmaf(Kp[(long long)i1 * N2 + i2], to_f32(X[o]), acc);
 }
@@ -91,11 +123,12 @@ int launch(const void* X, const void* Kp, const void* Ke, const void* in1_slot,
            const void* e1_slot, const void* in2_slot, const void* e2_slot,
            void* Y, int N1, int N2, int C, int S1, int S2,
            long long ke_stride, void* stream) {
-  if (S1 > kMaxS1) return (int)cudaErrorInvalidValue;
   if (N1 <= 0 || N2 <= 0 || C <= 0) return (int)cudaSuccess;
   dim3 grid((unsigned)(((long long)N2 * C + kThreads - 1) / kThreads),
             (unsigned)N1);
-  assoc_univ_v3_kernel<XT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kern = S1 > kMaxS1 ? assoc_univ_v3_kernel<XT, true>
+                          : assoc_univ_v3_kernel<XT, false>;
+  kern<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const XT*)X, (const float*)Kp, (const float*)Ke, (const int*)in1_slot,
       (const int*)e1_slot, (const int*)in2_slot, (const int*)e2_slot,
       (float*)Y, N2, C, S1, S2, ke_stride);
@@ -122,6 +155,3 @@ extern "C" int fpm_assoc_univ_v3_bf16(
                                Y, N1, N2, C, S1, S2, ke_stride, stream);
 }
 
-extern "C" const char* fpm_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

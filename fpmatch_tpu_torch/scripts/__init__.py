@@ -1,0 +1,1 @@
+"""Entry points that are not CLIs of the package: block-size sweeps."""

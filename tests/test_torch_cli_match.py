@@ -245,7 +245,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'fpmatch_tpu'))\n"
         "new = ['cli.evaluate', 'data.benchmark', 'data.generator', "
-        "'evaluation.metrics', 'kernels.assoc_bucket', 'train.checkpoints', "
+        "'evaluation.metrics', 'kernels.assoc_bucket', 'kernels.assoc_univ', "
+        "'kernels.inoculate', 'scripts.tune_univ', 'train.checkpoints', "
         "'train.losses', 'train.step', 'utils.visualize']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "print(len(names), bad, missing)\n"
