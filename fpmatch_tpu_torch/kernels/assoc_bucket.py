@@ -18,11 +18,10 @@ the accumulator and the result stay f32).
 
 Re-thought for a GPU: each graph's edges are grouped once by their scatter
 endpoint (`plan_bucket`: a stable sort + counts + cumsum on the device, CSR
-per sample; index bookkeeping, remembered for the last two sets of edge
-lists so the three GNN layers of one forward share it), and every output
-cell gathers and reduces its own terms — no one-hot matmuls, no transposed
-layout, no atomics, so the order of the sum is fixed and two runs give the
-same bits.
+per sample; index bookkeeping, remembered for the last set of edge lists so
+the three GNN layers of one forward share it), and every output cell gathers
+and reduces its own terms — no one-hot matmuls, no transposed layout, no
+atomics, so the order of the sum is fixed and two runs give the same bits.
 Duplicate edges and self-loops are ordinary members of a run.
 
 Padded slots: with `e1_mask` / `e2_mask` (True = real edge; what the model
@@ -48,6 +47,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from . import _build
+from ._cells import channel_tiling
 
 # the TPU kernels these replace (file:line of the Pallas kernel bodies)
 REPLACES = {"assoc_bucket": "fpmatch_tpu/kernels/assoc_pallas.py:79",
@@ -57,7 +57,6 @@ SOURCE = "fpmatch_tpu_torch/kernels/csrc/assoc_bucket.cu"
 # launches of each CUDA kernel, counted where its wrapper launches it
 LAUNCHES: Dict[str, int] = {"assoc_bucket": 0, "assoc_large": 0}
 
-_MAX_SMEM = 200 * 1024     # dynamic shared memory the bucket kernel may ask for
 DEFAULT_BLOCK_C = 8        # channels per block of the any-size kernel
 
 
@@ -89,11 +88,10 @@ def _csr(out, inn, n: int, mask):
             inn.long().gather(1, order).int().contiguous(), offs)
 
 
-# the plans of the last two calls: key -> (the tensors it was made from,
-# plan). Two because `assoc_matvec_univ`'s two spill terms alternate from one
-# call to the next; a forward's GNN layers need one.
+# the plan of the last call: key -> (the tensors it was made from, plan); the
+# GNN layers of one forward share it
 _memo: "OrderedDict[tuple, tuple]" = OrderedDict()
-_MEMO_SIZE = 2
+_MEMO_SIZE = 1
 
 
 def _version(t: torch.Tensor) -> int:
@@ -107,12 +105,10 @@ def plan_bucket(src1, dst1, src2, dst2, n1: int, n2: int,
                 ) -> BucketPlan:
     """Group both edge lists by scatter endpoint (device ops, no host sync).
 
-    The plans of the last two calls are kept, each together with the
-    tensors it was made from (so their memory cannot be reused while it is
-    kept), and returned again when the same tensors — same storage, shape,
-    strides and version counter — come back: the GNN layers of one forward
-    share one plan, and so do the two spill terms of `assoc_matvec_univ`
-    from one call to the next."""
+    The plan of the last call is kept together with the tensors it was made
+    from (so their memory cannot be reused while it is kept), and returned
+    again when the same tensors — same storage, shape, strides and version
+    counter — come back: the GNN layers of one forward share one plan."""
     given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
     key = (n1, n2, transpose) + tuple(
         None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
@@ -243,30 +239,19 @@ def _fn(lib, name, n_ptr, n_int):
     return fn
 
 
-def _bucket_rows(row_elems: int, itemsize: int) -> int:
-    """How many gathered X rows the bucket kernel stages at a time."""
-    for rows in (8, 4, 2, 1):
-        if 4 * row_elems + 4 * rows + rows * row_elems * itemsize \
-                <= _MAX_SMEM:
-            return rows
-    raise ValueError(
-        f"assoc_matvec_bucket: one row of X (N2 * C = {row_elems} values) "
-        f"does not fit the kernel's shared memory; use assoc_matvec_large")
-
-
 def _launch_bucket(X, Kp, Ke, plan: BucketPlan) -> torch.Tensor:
     B, n1, n2, C = X.shape
-    rows = _bucket_rows(n2 * C, X.element_size())
+    X, Kp, Ke = X.contiguous(), Kp.contiguous(), Ke.contiguous()
+    nc, vec = channel_tiling(X)
     lib = _build.load("assoc_bucket")
     fn = _fn(lib, "fpm_assoc_bucket_bf16" if X.dtype == torch.bfloat16
-             else "fpm_assoc_bucket_f32", 10, 7)
-    X, Kp, Ke = X.contiguous(), Kp.contiguous(), Ke.contiguous()
+             else "fpm_assoc_bucket_f32", 10, 8)
     Y = torch.empty((B, n1, n2, C), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(X.data_ptr(), Kp.data_ptr(), Ke.data_ptr(),
                   *(t.data_ptr() for t in plan[2:]), Y.data_ptr(), B, n1, n2,
-                  C, Ke.shape[1], Ke.shape[2], rows, stream)
+                  C, Ke.shape[1], Ke.shape[2], nc, int(vec), stream)
     _build.check(lib, code, "assoc_bucket launch")
     LAUNCHES["assoc_bucket"] += 1
     return Y
@@ -304,9 +289,8 @@ def assoc_matvec_bucket(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
         masked-out slots are skipped (see the module docstring)
     :return: (B, N1, N2, C) float32
 
-    CUDA tensors go through the CUDA kernel (a failed build or launch, or a
-    row of X too wide for shared memory, raises); CPU tensors through the
-    plain version.
+    CUDA tensors go through the CUDA kernel (a failed build or launch
+    raises); CPU tensors through the plain version.
     """
     _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
     if X.device.type == "cuda":

@@ -2,16 +2,17 @@
 CUDA kernel.
 
 Counterpart of the JAX package's `kernels/assoc_univ.py` (the Pallas
-`_univ_kernel` reached through `_univ_pallas` from `assoc_matvec_univ`): the
-same function, plan and public signature. Delaunay edges are spatially local,
-so with nodes sorted along x every edge's endpoints fall in a narrow band:
+`_univ_kernel` reached through `_univ_pallas` from `assoc_matvec_univ`, and
+the spill terms that wrapper adds): the same function, plan and public
+signature. Delaunay edges are spatially local, so with nodes sorted along x
+every edge's endpoints fall in a narrow band:
 
   * nodes of graph 1 form row blocks of r1, graph 2 column blocks of r2;
   * edges are grouped by their scatter endpoint's block (disjoint tiles);
   * each kept edge's gather endpoint lies in the 3-block window around its
-    scatter block; the others are spilled and added by the plain matvec of
-    the spilled edges (on the card: the port's K2 / K3 kernels, through
-    `ops.assoc.assoc_matvec_auto`), so the result is exact for any graph.
+    scatter block; the others are spilled: spilled graph-1 edges meet every
+    graph-2 edge, kept graph-1 edges the spilled graph-2 edges, so the
+    result is exact for any graph.
 
 Per pair (Ke and the plan are reused across GNN layers; only X changes):
 
@@ -21,16 +22,24 @@ Per pair (Ke and the plan are reused across GNN layers; only X changes):
     Y    = assoc_matvec_univ(X, Kp, Ke, plan, KeR)     # per layer
 
 `plan_univ` is host numpy and equal, field for field, to the JAX package's;
-`UnivPlan.to(device)` adds the per-block tables the CUDA kernel reads (each
-block's kept slots ordered by local scatter index). `assoc_matvec_univ`
-launches the kernel (csrc/assoc_univ.cu) for CUDA tensors — or raises — and
-uses `assoc_matvec_univ_plain`, the plain PyTorch version of the same
+`UnivPlan.to(device)` adds the tables the CUDA kernel reads: each block's
+kept slots ordered by local scatter index with their original gather nodes,
+and the spilled / kept edge lists of both graphs ordered by sorted scatter
+node (the plain version reads the plan's own spill lists instead, so a fault
+in those tables shows against it). `assoc_matvec_univ` launches the kernel (csrc/assoc_univ.cu: kept
+terms, spill terms and Kp X in one launch) for CUDA tensors — or raises —
+and uses `assoc_matvec_univ_plain`, the plain PyTorch version of the same
 function, only for tensors that lie on the CPU. The JAX function's
 `fused_ta` chooses a layout of the TPU's matrix unit and has no counterpart.
-Precision "default" rounds both X and KeR to bf16 for the kept-edge part
-(products and sums f32); the spilled part runs in X's own dtype against f32
-Ke. The kernel is memory-bound; see the note at the top of the source.
-Inference only: like the TPU kernel it has no backward.
+
+Rounding follows the JAX wrapper. Precision "default" rounds X and KeR to
+bf16 for the kept-edge part (products and sums f32). With bf16 X the kept
+part is rounded to bf16 (JAX scatters it into `zeros_like(X)`) and every
+spilled product is bf16(X) bf16(Ke) rounded to bf16 (JAX's
+`ops.assoc.assoc_matvec` multiplies in X's dtype); with f32 X the spilled
+part is f32. Sums are f32 and the result is f32. The kernel is
+memory-bound; see the note at the top of the source. Inference only: like
+the TPU kernel it has no backward.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ import numpy as np
 import torch
 
 from . import _build
-from ..ops.assoc import assoc_matvec_auto, assoc_matvec_chunked
+from ._cells import channel_tiling
+from ..ops.assoc import assoc_matvec_chunked
 
 # the TPU kernel this one replaces (file:line of the Pallas kernel body)
 REPLACES = "fpmatch_tpu/kernels/assoc_univ.py:165"
@@ -85,14 +95,19 @@ class UnivPlan(NamedTuple):
     dst2: np.ndarray
 
     def to(self, device) -> "UnivPlanDev":
-        """The tensors the kernel, the plain version and the spill terms
-        read, on `device`."""
+        """The tensors the kernel and the plain version read, on `device`."""
         t = lambda a, dt=torch.int64: torch.from_numpy(
             np.ascontiguousarray(a)).to(device=device, dtype=dt)
+        i32 = lambda a: t(a, torch.int32)
+        n1, n2 = len(self.perm1), len(self.perm2)
         e1n, e2n = len(self.src1), len(self.src2)
-        csr1 = _block_csr(self.e1_idx, self.d1_loc, self.s1_loc, self.r1, e1n)
-        csr2 = _block_csr(self.e2_idx, self.d2_loc, self.s2_loc, self.r2, e2n)
-        # the exact remainder: spilled e1 against all e2, then kept e1
+        blk1, offs1 = _block_csr(self.e1_idx, self.s1_loc, self.dst1, self.r1)
+        blk2, offs2 = _block_csr(self.e2_idx, self.s2_loc, self.dst2, self.r2)
+        row1 = _inverse(self.perm1)[self.src1]      # sorted scatter nodes
+        col2 = _inverse(self.perm2)[self.src2]
+        keep1 = np.setdiff1d(np.arange(e1n), self.spill1)
+        # the plain version's spill terms, from the plan's own lists as the
+        # JAX wrapper takes them: spilled e1 against all e2, then kept e1
         # against spilled e2 — (Ke rows, Ke columns or None for all, and the
         # (1, K) edge lists of each term)
         spills = []
@@ -103,21 +118,29 @@ class UnivPlan(NamedTuple):
                            t(self.dst2[None])))
         if len(self.spill2):
             sp2 = self.spill2
-            keep1 = np.setdiff1d(np.arange(e1n), self.spill1)
             spills.append((t(keep1), t(sp2), t(self.src1[keep1][None]),
                            t(self.dst1[keep1][None]), t(self.src2[sp2][None]),
                            t(self.dst2[sp2][None])))
+        runs = (_runs(self.spill1, row1, self.dst1, n1),
+                _runs(keep1, row1, self.dst1, n1),
+                _runs(np.arange(e2n), col2, self.dst2, n2),
+                _runs(self.spill2, col2, self.dst2, n2))
         return UnivPlanDev(
-            *self[:7], len(self.perm1), len(self.perm2), e1n, e2n,
-            t(self.perm1), t(self.perm2), t(self.e1_idx), t(self.e2_idx),
+            *self[:7], n1, n2, e1n, e2n, i32(self.perm1), i32(self.perm2),
+            t(self.e1_idx), t(self.e2_idx),
             t(self.d1_loc[..., 0]), t(self.s1_loc[..., 0]),
-            t(self.d2_loc[..., 0]), t(self.s2_loc[..., 0]),
-            *(t(a, torch.int32) for a in csr1 + csr2), tuple(spills))
+            t(self.d2_loc[..., 0]), t(self.s2_loc[..., 0]), tuple(spills),
+            i32(blk1), i32(offs1), i32(blk2), i32(offs2),
+            *(i32(a) for run in runs for a in run))
 
 
 class UnivPlanDev(NamedTuple):
-    """A plan on one device: the JAX plan's scalars, its tables as int64
-    tensors, and the kernel's per-block CSR as int32 tensors."""
+    """A plan on one device: the JAX plan's scalars and tables (int64), the
+    plain version's spill terms, and the kernel's tables (int32). `blk*`
+    hold, per block, the kept slots ordered by local scatter index (stable;
+    pads in no run) as (slot, original gather node); the four edge lists are
+    CSRs over SORTED scatter nodes holding (original edge id, original
+    gather node)."""
     r1: int
     r2: int
     b1: int
@@ -129,7 +152,7 @@ class UnivPlanDev(NamedTuple):
     n2: int
     e1: int                 # real edges of graph 1 (= the pad id)
     e2: int
-    perm1: torch.Tensor
+    perm1: torch.Tensor     # (N1,) int32 sorted node -> original node
     perm2: torch.Tensor
     e1_idx: torch.Tensor    # (I, B1)
     e2_idx: torch.Tensor    # (J, B2)
@@ -137,29 +160,61 @@ class UnivPlanDev(NamedTuple):
     s1_loc: torch.Tensor
     d2_loc: torch.Tensor    # (J, B2)
     s2_loc: torch.Tensor
-    ord1: torch.Tensor      # (I, B1) kept slots ordered by s1_loc, pads last
-    dl1: torch.Tensor       # (I, B1) d1_loc of those slots
-    offs1: torch.Tensor     # (I, r1 + 1) run offsets per local row
-    ord2: torch.Tensor      # (J, B2)
-    dl2: torch.Tensor
-    offs2: torch.Tensor     # (J, r2 + 1)
     spills: tuple           # per spill term: (Ke rows, Ke columns or None,
     #                         src1, dst1, src2, dst2 as (1, K) edge lists)
+    blk1: torch.Tensor      # (I, B1, 2)
+    offs1: torch.Tensor     # (I, r1 + 1) run offsets per local row
+    blk2: torch.Tensor      # (J, B2, 2)
+    offs2: torch.Tensor     # (J, r2 + 1)
+    spill1_offs: torch.Tensor   # (N1 + 1,) spilled graph-1 edges
+    spill1: torch.Tensor        # (K1, 2)
+    keep1_offs: torch.Tensor    # kept graph-1 edges
+    keep1: torch.Tensor
+    all2_offs: torch.Tensor     # every graph-2 edge
+    all2: torch.Tensor
+    spill2_offs: torch.Tensor   # spilled graph-2 edges
+    spill2: torch.Tensor
+
+    def kernel_tables(self):
+        """The int32 tables in the order of the CUDA kernel's arguments."""
+        return (self.perm1, self.perm2) + self[self._fields.index("blk1"):]
 
 
-def _block_csr(e_idx, d_loc, s_loc, r: int, n_edges: int):
+def _inverse(perm: np.ndarray) -> np.ndarray:
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=perm.dtype)
+    return inv
+
+
+def _block_csr(e_idx, s_loc, gath, r: int):
     """Each block's kept slots ordered by local scatter index (stable; pad
-    slots last, in no run): (order, gather index of those slots, run
-    offsets (nblk, r + 1))."""
+    slots last, in no run): ((nblk, B, 2) of (slot, original gather node),
+    run offsets (nblk, r + 1)). Past a block's last run the entries are 0."""
     nblk = e_idx.shape[0]
-    key = np.where(e_idx < n_edges, s_loc[..., 0], r)
+    real = e_idx < len(gath)
+    key = np.where(real, s_loc[..., 0], r)
     order = np.argsort(key, axis=1, kind="stable")
-    dl = np.take_along_axis(d_loc[..., 0], order, axis=1)
+    gz = np.append(np.asarray(gath, np.int64), 0)         # pad id -> 0
+    blk = np.stack([np.where(np.take_along_axis(real, order, axis=1),
+                             order, 0),
+                    np.take_along_axis(gz[e_idx], order, axis=1)], axis=-1)
     counts = np.zeros((nblk, r + 1), np.int64)
     np.add.at(counts, (np.arange(nblk)[:, None], key), 1)
     offs = np.zeros((nblk, r + 1), np.int64)
     np.cumsum(counts[:, :r], axis=1, out=offs[:, 1:])
-    return order, dl, offs
+    return blk, offs
+
+
+def _runs(ids, node, gath, n: int):
+    """The edges `ids` as a CSR over sorted scatter nodes (stable by edge
+    id): (offsets (n + 1,), (K, 2) of (edge id, original gather node))."""
+    ids = np.asarray(ids, np.int64)
+    key = node[ids]
+    order = np.argsort(key, kind="stable")
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=n), out=offs[1:])
+    ids = ids[order]
+    return offs, np.stack([ids, gath[ids]], axis=-1).reshape(-1, 2)
 
 
 def _plan_axis(points, scat, gath, r):
@@ -280,7 +335,8 @@ def compute_dtype(X: torch.Tensor, precision: str) -> torch.dtype:
 
 def halo(X: torch.Tensor, plan: UnivPlanDev, dtype) -> torch.Tensor:
     """(C, n1p + 2 r1, n2p + 2 r2): X in sorted order, channel-major, with a
-    zero halo of one block on each side."""
+    zero halo of one block on each side (the plain version's layout; the
+    kernel reads X as it is)."""
     n1, n2, _ = X.shape
     Xs = X.index_select(0, plan.perm1).index_select(1, plan.perm2)
     Xs = Xs.to(dtype).permute(2, 0, 1)
@@ -297,62 +353,13 @@ def _unsort(Ys: torch.Tensor, plan: UnivPlanDev) -> torch.Tensor:
     return Y
 
 
-def _table_bytes(plan) -> int:
-    """Shared memory of one block of the kernel: its two CSR tables."""
-    return 4 * (plan.r1 + 1 + 2 * plan.b1 + plan.r2 + 1 + 2 * plan.b2)
-
-
-def launch_kernel(Xp: torch.Tensor, KeR: torch.Tensor, plan: UnivPlanDev
-                  ) -> torch.Tensor:
-    """The CUDA kernel alone: the kept-edge terms of every tile, (C, n1p,
-    n2p) float32 in sorted order. Xp from `halo`, KeR from
-    `gather_ke_blocks`, both float32 or both bfloat16."""
-    if Xp.device.type != "cuda":
-        raise RuntimeError("assoc_univ: the kernel runs on CUDA tensors")
-    tabs = (plan.ord1, plan.dl1, plan.offs1, plan.ord2, plan.dl2, plan.offs2)
-    if any(t.device != Xp.device for t in (KeR,) + tabs):
-        raise ValueError("assoc_univ: Xp, KeR and the plan's tables must lie "
-                         "on one device")
-    I, J = plan.n1p // plan.r1, plan.n2p // plan.r2
-    C = Xp.shape[0]
-    want = (C, plan.n1p + 2 * plan.r1, plan.n2p + 2 * plan.r2)
-    if tuple(Xp.shape) != want:
-        raise ValueError(f"Xp must be {want}, got {tuple(Xp.shape)}")
-    if tuple(KeR.shape) != (I * plan.b1, J * plan.b2):
-        raise ValueError(f"KeR must be {(I * plan.b1, J * plan.b2)}, got "
-                         f"{tuple(KeR.shape)}")
-    if Xp.dtype not in (torch.float32, torch.bfloat16) or \
-            KeR.dtype != Xp.dtype:
-        raise TypeError("Xp and KeR must be both float32 or both bfloat16")
-    if _table_bytes(plan) > _MAX_SMEM:
-        raise ValueError("assoc_univ: the plan's per-block tables do not fit "
-                         "shared memory; use a smaller r1 / r2")
-    lib = _build.load("assoc_univ")
-    fn = (lib.fpm_assoc_univ_bf16 if Xp.dtype == torch.bfloat16
-          else lib.fpm_assoc_univ_f32)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    Xp, KeR = Xp.contiguous(), KeR.contiguous()
-    tabs = [t.contiguous() for t in tabs]
-    Ys = torch.empty((C, plan.n1p, plan.n2p), dtype=torch.float32,
-                     device=Xp.device)
-    with torch.cuda.device(Xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(Xp.data_ptr(), KeR.data_ptr(),
-                  *(t.data_ptr() for t in tabs), Ys.data_ptr(), C, I, J,
-                  plan.r1, plan.r2, plan.b1, plan.b2, stream)
-    _build.check(lib, code, "assoc_univ launch")
-    LAUNCHES["assoc_univ"] += 1
-    return Ys
-
-
 def kept_terms_plain(Xp: torch.Tensor, KeR: torch.Tensor, plan: UnivPlanDev,
                      chunk: int = 256) -> torch.Tensor:
-    """The plain version of the kernel: the same kept-edge terms from the
-    JAX plan's own fields (not the kernel's CSR), gathered from the halo
-    layout and summed with `index_add_` in f32, `chunk` graph-1 slots at a
-    time; pad slots are left out, as the kernel leaves them."""
+    """The kept-edge terms of every tile, (C, n1p, n2p) float32 in sorted
+    order, from the JAX plan's own fields (not the kernel's tables), gathered
+    from the halo layout and summed with `index_add_` in f32, `chunk`
+    graph-1 slots at a time; pad slots are left out, as the kernel leaves
+    them."""
     C = Xp.shape[0]
     dev = Xp.device
 
@@ -379,38 +386,73 @@ def kept_terms_plain(Xp: torch.Tensor, KeR: torch.Tensor, plan: UnivPlanDev,
     return Ys
 
 
-def spill_terms(X, Ke, plan: UnivPlanDev, matvec=assoc_matvec_auto):
-    """The exact remainder the kernel leaves out: spilled e1 against all
-    e2, then kept e1 against spilled e2, each through `matvec` (the batched
-    `ops.assoc` contract, zero Kp) in the plan's swapped, non-transposed
-    orientation. Returns the list of (N1, N2, C) float32 terms (empty when
-    nothing spilled). The edge lists are the plan's own tensors, so
-    `plan_bucket` finds both terms' groupings again on the next call."""
+def spill_terms_plain(X: torch.Tensor, Ke: torch.Tensor, plan: UnivPlanDev):
+    """The spilled part from the plan's own edge lists (`plan.spills`, not
+    the kernel's tables): spilled graph-1 edges against every graph-2 edge,
+    then kept graph-1 edges against the spilled graph-2 edges, each through
+    the plain op in X's dtype (bf16 X: bf16 products, f32 sums; as the JAX
+    wrapper's `ops.assoc.assoc_matvec`) in the plan's swapped,
+    non-transposed orientation. Returns the list of (N1, N2, C) float32
+    terms (empty when nothing spilled)."""
     zero_kp = torch.zeros((1, plan.n1, plan.n2), dtype=torch.float32,
                           device=X.device)
     terms = []
     for rows, cols, *edges in plan.spills:
         ke = Ke if cols is None else Ke.index_select(1, cols)
-        terms.append(matvec(X[None], zero_kp, ke.index_select(0, rows)[None],
-                            *edges)[0])
+        terms.append(assoc_matvec_chunked(
+            X[None], zero_kp, ke.index_select(0, rows)[None], *edges)[0])
     return terms
 
 
-def _plain_spill_matvec(X, Kp, Ke, src1, dst1, src2, dst2):
-    # f32 products of X's values, as the port's kernels take them
-    return assoc_matvec_chunked(X.float(), Kp, Ke, src1, dst1, src2, dst2)
-
-
-def _matvec(X, Kp, Ke, plan, KeR, precision, kept, spill):
-    dt = compute_dtype(X, precision)
+def _ker(Ke, plan, KeR, dtype):
     if KeR is None:
-        KeR = gather_ke_blocks(Ke, plan, dtype=dt)
-    elif KeR.dtype != dt:
-        KeR = KeR.to(dt)
-    Y = _unsort(kept(halo(X, plan, dt), KeR, plan), plan)
-    for term in spill_terms(X, Ke, plan, spill):
-        Y = Y + term
-    return Y + Kp[..., None] * X.float()
+        return gather_ke_blocks(Ke, plan, dtype=dtype)
+    return KeR if KeR.dtype == dtype else KeR.to(dtype)
+
+
+def launch_kernel(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
+                  KeR: torch.Tensor, plan: UnivPlanDev,
+                  precision: str = "highest") -> torch.Tensor:
+    """One launch of the CUDA kernel: the whole product, (N1, N2, C)
+    float32. KeR from `gather_ke_blocks`, in `compute_dtype(X, precision)`."""
+    _check(X, Kp, Ke, plan, precision, KeR)
+    if X.device.type != "cuda":
+        raise RuntimeError("assoc_univ: the kernel runs on CUDA tensors")
+    tabs = plan.kernel_tables()
+    if any(t.device != X.device for t in tabs):
+        raise ValueError("assoc_univ: X and the plan's tables must lie on "
+                         "one device")
+    I, J = plan.n1p // plan.r1, plan.n2p // plan.r2
+    n1, n2, C = X.shape
+    if tuple(KeR.shape) != (I * plan.b1, J * plan.b2):
+        raise ValueError(f"KeR must be {(I * plan.b1, J * plan.b2)}, got "
+                         f"{tuple(KeR.shape)}")
+    if KeR.dtype != compute_dtype(X, precision):
+        raise TypeError(f"KeR must be {compute_dtype(X, precision)} for "
+                        f"{X.dtype} X at precision {precision!r}")
+    if 8 * (plan.b1 + plan.b2) > _MAX_SMEM:
+        raise ValueError("assoc_univ: the plan's per-block tables do not fit "
+                         "shared memory; use a smaller r1 / r2")
+    X, Kp, Ke, KeR = (t.contiguous() for t in (X, Kp, Ke, KeR))
+    nc, vec = channel_tiling(X)
+    lib = _build.load("assoc_univ")
+    name = ("fpm_assoc_univ_bf16" if X.dtype == torch.bfloat16 else
+            "fpm_assoc_univ_f32_bf16" if KeR.dtype == torch.bfloat16 else
+            "fpm_assoc_univ_f32")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 12 + \
+        [ctypes.c_void_p]
+    Y = torch.empty((n1, n2, C), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(X.data_ptr(), KeR.data_ptr(), Ke.data_ptr(), Kp.data_ptr(),
+                  *(t.data_ptr() for t in tabs), Y.data_ptr(), n1, n2, C,
+                  plan.e2, I, J, plan.r1, plan.r2, plan.b1, plan.b2, nc,
+                  int(vec), stream)
+    _build.check(lib, code, "assoc_univ launch")
+    LAUNCHES["assoc_univ"] += 1
+    return Y
 
 
 # ------------------------------------------------------------ entry points
@@ -418,14 +460,21 @@ def assoc_matvec_univ_plain(X: torch.Tensor, Kp: torch.Tensor,
                             Ke: torch.Tensor, plan: UnivPlanDev,
                             KeR: Optional[torch.Tensor] = None, *,
                             precision: str = "highest") -> torch.Tensor:
-    """The plain PyTorch version of `assoc_matvec_univ`: the same sort,
-    rounding and halo, `kept_terms_plain` for the kernel, the plain
-    `ops.assoc` op (f32 products) for the spilled edges. Used by the CPU
-    tests and as the yardstick the kernel is held against; launches
+    """The plain PyTorch version of `assoc_matvec_univ`: the same sort and
+    rounding, the kept part from the halo layout (`kept_terms_plain`, rounded
+    to bf16 for bf16 X), the spilled part from the plan's own edge lists
+    through the plain op (`spill_terms_plain`), then Kp X. Used by the
+    CPU tests and as the yardstick the kernel is held against; launches
     nothing."""
     _check(X, Kp, Ke, plan, precision, KeR)
-    return _matvec(X, Kp, Ke, plan, KeR, precision, kept_terms_plain,
-                   _plain_spill_matvec)
+    dt = compute_dtype(X, precision)
+    Y = _unsort(kept_terms_plain(halo(X, plan, dt), _ker(Ke, plan, KeR, dt),
+                                 plan), plan)
+    if X.dtype == torch.bfloat16:
+        Y = Y.bfloat16().float()
+    for term in spill_terms_plain(X, Ke, plan):
+        Y = Y + term
+    return Y + Kp[..., None] * X.float()
 
 
 def assoc_matvec_univ(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
@@ -442,14 +491,14 @@ def assoc_matvec_univ(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
         to bf16 in the kept-edge part; f32 products and sums)
     :return: (N1, N2, C) float32
 
-    CUDA tensors go through the CUDA kernel and, for spilled edges, the
-    port's K2 / K3 kernels (a failed build or launch raises); CPU tensors
-    through the plain version.
+    CUDA tensors go through one launch of the CUDA kernel (a failed build
+    or launch raises); CPU tensors through the plain version.
     """
     _check(X, Kp, Ke, plan, precision, KeR)
     if X.device.type == "cuda":
-        return _matvec(X, Kp, Ke, plan, KeR, precision, launch_kernel,
-                       assoc_matvec_auto)
+        return launch_kernel(
+            X, Kp, Ke, _ker(Ke, plan, KeR, compute_dtype(X, precision)),
+            plan, precision)
     if X.device.type == "cpu":
         return assoc_matvec_univ_plain(X, Kp, Ke, plan, KeR,
                                        precision=precision)

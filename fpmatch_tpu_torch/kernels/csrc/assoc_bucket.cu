@@ -1,6 +1,7 @@
 // Batched association matvec for Hopper (sm_90a): the bucket-scale kernel
-// (rows of X staged in shared memory, Kp term fused) and the blocked kernel
-// for pairs of any size (gathers straight from global memory / L2, no Kp).
+// (a warp per row tile, channels in registers, Kp term fused) and the blocked
+// kernel for pairs of any size (gathers straight from global memory / L2, no
+// Kp).
 //
 // They replace the TPU Pallas kernels of fpmatch_tpu/kernels/assoc_pallas.py:
 // `_kernel` (reached through assoc_matvec_pallas) and `_kernel_large`
@@ -26,14 +27,19 @@
 //
 // Bound: memory bytes (X + Kp + Ke + Y once; 2 flops per association edge and
 // channel is far below what those bytes allow). Design of the bucket kernel:
-// one block per (sample b, output row a). The X rows in1(e1) of the row's
-// incident edges are staged in shared memory, `rows` at a time, and the block's
-// threads walk the flattened (column j, channel c) axis: the C threads of one
-// j read the same Ke element (a broadcast) and C consecutive staged values;
-// sums are kept in a shared row of f32 and stored once, coalesced. The
-// blocked kernel tiles the channels as well (grid: row a, sample b, channel
-// chunk) and stages only the row's edge ids, so nothing has to fit anywhere.
-// No cp.async / TMA / tensor cores yet.
+// a warp owns (sample b, output row a, a tile of columns, a chunk of up to 32
+// channels). It stages the row's run of (e1, in1) in shared memory, 32
+// entries at a time (so any degree runs, with no block barrier). Its lanes
+// own cells: L = ceil(min(C, 32) / NC) lanes per cell, NC channels of the
+// cell in registers each, gathered straight from global memory / L2 (a batch
+// of X is a few MB) as 16-byte vectors where C and the alignment allow
+// (otherwise one thread holds all of the cell's channels: NC = 32, or 1 at
+// C = 1; a lane per channel was slower at C = 17). Each
+// Ke value is read once per term for all channels. `Kp * X` is added last
+// and the cell is written once. Shared memory does not depend on N2 or C, so
+// every width runs. The blocked kernel tiles the channels as well (grid: row
+// a, sample b, channel chunk) and stages only the row's edge ids, so nothing
+// has to fit anywhere. No cp.async / TMA / tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,17 +48,23 @@
 
 namespace {
 
+using fpm_common::load_channels;
+using fpm_common::store_channels;
+using fpm_common::to_f32;
+
 constexpr int kMaxThreads = 256;
 constexpr int kStage = 128;   // edge ids of one output row staged at a time
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kWarps = 4;     // warps per block of the bucket kernel
 
 // ---------------------------------------------------------------- bucket scale
-template <typename XT>
-__global__ void assoc_bucket_kernel(
+struct BucketGeom {
+  int B, N1, N2, C, E1, E2;
+  int L, CH, cpw, tiles, chunks;   // lanes per cell, channels per chunk,
+                                   // cells per warp, column tiles, chunks
+};
+
+template <typename XT, int NC, bool kVec>
+__global__ void __launch_bounds__(kWarps * 32) assoc_bucket_kernel(
     const XT* __restrict__ X,        // (B, N1, N2, C)
     const float* __restrict__ Kp,    // (B, N1, N2)
     const float* __restrict__ Ke,    // (B, E1, E2)
@@ -63,59 +75,80 @@ __global__ void assoc_bucket_kernel(
     const int* __restrict__ ins2,    // (B, E2)
     const int* __restrict__ offs2,   // (B, N2 + 1)
     float* __restrict__ Y,           // (B, N1, N2, C)
-    int N1, int N2, int C, int E1, int E2, int rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row_elems = N2 * C;
-  float* ys = reinterpret_cast<float*>(smem_raw);              // (row_elems)
-  int* se1 = reinterpret_cast<int*>(ys + row_elems);           // (rows)
-  XT* xs = reinterpret_cast<XT*>(se1 + rows);                  // (rows, row_elems)
+    BucketGeom g) {
+  __shared__ int2 run1[kWarps][32];
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  long long w = (long long)blockIdx.x * kWarps + wi;
+  const int chunk = (int)(w % g.chunks);
+  w /= g.chunks;
+  const int tile = (int)(w % g.tiles);
+  w /= g.tiles;
+  const int a = (int)(w % g.N1);
+  const long long b = w / g.N1;
+  if (b >= g.B) return;                    // the whole warp
 
-  const int a = blockIdx.x;
-  const int b = blockIdx.y;
-  const XT* Xb = X + (long long)b * N1 * row_elems;
-  const float* Keb = Ke + (long long)b * E1 * E2;
-  const int* ord1 = order1 + (long long)b * E1;
-  const int* in1 = ins1 + (long long)b * E1;
-  const int* ord2 = order2 + (long long)b * E2;
-  const int* in2 = ins2 + (long long)b * E2;
-  const int* of2 = offs2 + (long long)b * (N2 + 1);
-  const int lo1 = offs1[(long long)b * (N1 + 1) + a];
-  const int hi1 = offs1[(long long)b * (N1 + 1) + a + 1];
+  const int cell = lane / g.L;
+  const int j0 = tile * g.cpw + cell;
+  const int c0 = chunk * g.CH + (lane - cell * g.L) * NC;
+  const int nc = min(NC, min(g.C, (chunk + 1) * g.CH) - c0);
+  const bool live = cell < g.cpw && j0 < g.N2 && nc > 0;
+  const int j = live ? j0 : 0;
+  const long long rowX = (long long)g.N2 * g.C;
+  const XT* Xb = X + b * g.N1 * rowX + (live ? c0 : 0);
+  const float* Keb = Ke + b * g.E1 * g.E2;
+  const int* ord1 = order1 + b * g.E1;
+  const int* in1 = ins1 + b * g.E1;
+  const int* ord2 = order2 + b * g.E2;
+  const int* in2 = ins2 + b * g.E2;
+  const int lo1 = offs1[b * (g.N1 + 1) + a];
+  const int hi1 = offs1[b * (g.N1 + 1) + a + 1];
+  const int lo2 = live ? offs2[b * (g.N2 + 1) + j] : 0;
+  const int hi2 = live ? offs2[b * (g.N2 + 1) + j + 1] : 0;
 
-  const XT* xrow = Xb + (long long)a * row_elems;
-  const float* kprow = Kp + ((long long)b * N1 + a) * N2;
-  for (int flat = threadIdx.x; flat < row_elems; flat += blockDim.x)
-    ys[flat] = kprow[flat / C] * to_f32(xrow[flat]);
-
-  for (int lo = lo1; lo < hi1; lo += rows) {
-    const int nr = min(rows, hi1 - lo);
-    __syncthreads();   // the previous chunk's readers are done
-    for (int r = threadIdx.x; r < nr; r += blockDim.x) se1[r] = ord1[lo + r];
-    for (int r = 0; r < nr; ++r) {
-      const XT* src = Xb + (long long)in1[lo + r] * row_elems;
-      XT* dst = xs + (long long)r * row_elems;
-      for (int i = threadIdx.x; i < row_elems; i += blockDim.x)
-        dst[i] = src[i];
-    }
-    __syncthreads();
-    for (int flat = threadIdx.x; flat < row_elems; flat += blockDim.x) {
-      const int j = flat / C;
-      const int c = flat - j * C;
-      float acc = 0.0f;
-      const int hi2 = of2[j + 1];
-      for (int p = of2[j]; p < hi2; ++p) {
-        const float* kecol = Keb + ord2[p];
-        const XT* xcol = xs + in2[p] * C + c;
-        for (int r = 0; r < nr; ++r)
-          acc = fmaf(kecol[(long long)se1[r] * E2],
-                     to_f32(xcol[(long long)r * row_elems]), acc);
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
+  for (int base = lo1; base < hi1; base += 32) {
+    const int n = min(32, hi1 - base);
+    __syncwarp();                          // the previous chunk's readers
+    if (lane < n) run1[wi][lane] = make_int2(ord1[base + lane],
+                                             in1[base + lane]);
+    __syncwarp();
+    for (int p = lo2; p < hi2; ++p) {
+      const float* kc = Keb + ord2[p];
+      const XT* xc = Xb + (long long)in2[p] * g.C;
+      for (int r = 0; r < n; ++r) {
+        const int2 u = run1[wi][r];
+        const float kv = kc[(long long)u.x * g.E2];
+        float x[NC];
+        load_channels<XT, NC, kVec>(xc + (long long)u.y * rowX, nc, x);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[c] = fmaf(kv, x[c], acc[c]);
       }
-      ys[flat] += acc;   // each thread owns its cells of the row
     }
   }
-  float* yrow = Y + ((long long)b * N1 + a) * row_elems;
-  for (int flat = threadIdx.x; flat < row_elems; flat += blockDim.x)
-    yrow[flat] = ys[flat];
+  if (!live) return;
+  const long long cy = (b * g.N1 + a) * g.N2 + j;
+  const float kp = Kp[cy];
+  float x[NC];
+  load_channels<XT, NC, kVec>(Xb + ((long long)a * g.N2 + j) * g.C, nc, x);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] += kp * x[c];
+  store_channels<NC, kVec>(Y + cy * g.C + c0, nc, acc);
+}
+
+template <typename XT, int NC, bool kVec>
+int launch_bucket_nc(const void* X, const void* Kp, const void* Ke,
+                     const void* order1, const void* ins1, const void* offs1,
+                     const void* order2, const void* ins2, const void* offs2,
+                     void* Y, const BucketGeom& g, unsigned blocks,
+                     cudaStream_t stream) {
+  assoc_bucket_kernel<XT, NC, kVec><<<blocks, kWarps * 32, 0, stream>>>(
+      (const XT*)X, (const float*)Kp, (const float*)Ke, (const int*)order1,
+      (const int*)ins1, (const int*)offs1, (const int*)order2,
+      (const int*)ins2, (const int*)offs2, (float*)Y, g);
+  return (int)cudaGetLastError();
 }
 
 template <typename XT>
@@ -123,28 +156,29 @@ int launch_bucket(const void* X, const void* Kp, const void* Ke,
                   const void* order1, const void* ins1, const void* offs1,
                   const void* order2, const void* ins2, const void* offs2,
                   void* Y, int B, int N1, int N2, int C, int E1, int E2,
-                  int rows, void* stream) {
+                  int nc, int vec, void* stream) {
   if (B <= 0 || N1 <= 0 || N2 <= 0 || C <= 0) return (int)cudaSuccess;
-  if (rows < 1 || rows > kMaxThreads || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long row_elems = (long long)N2 * C;
-  const size_t smem = (size_t)row_elems * sizeof(float) +
-                      (size_t)rows * sizeof(int) +
-                      (size_t)rows * row_elems * sizeof(XT);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        assoc_bucket_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = (int)((row_elems + 31) / 32 * 32);
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  dim3 grid((unsigned)N1, (unsigned)B);
-  assoc_bucket_kernel<XT><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const XT*)X, (const float*)Kp, (const float*)Ke, (const int*)order1,
-      (const int*)ins1, (const int*)offs1, (const int*)order2,
-      (const int*)ins2, (const int*)offs2, (float*)Y, N1, N2, C, E1, E2, rows);
-  return (int)cudaGetLastError();
+  if (nc <= 0 || nc > 32) return (int)cudaErrorInvalidValue;
+  BucketGeom g{B, N1, N2, C, E1, E2};
+  g.CH = C < 32 ? C : 32;
+  g.L = (g.CH + nc - 1) / nc;
+  g.cpw = 32 / g.L;
+  g.tiles = (N2 + g.cpw - 1) / g.cpw;
+  g.chunks = (C + g.CH - 1) / g.CH;
+  const long long warps = (long long)B * N1 * g.tiles * g.chunks;
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define FPM_NC(NCV, VECV)                                                    \
+  if (nc == NCV && (vec != 0) == VECV)                                       \
+    return launch_bucket_nc<XT, NCV, VECV>(X, Kp, Ke, order1, ins1, offs1,   \
+                                           order2, ins2, offs2, Y, g,        \
+                                           (unsigned)blocks, s);
+  FPM_NC(1, false)
+  FPM_NC(32, false)
+  FPM_NC(16 / (int)sizeof(XT), true)
+#undef FPM_NC
+  return (int)cudaErrorInvalidValue;
 }
 
 // --------------------------------------------------------------- any size
@@ -234,7 +268,7 @@ int launch_large(const void* X, const void* Ke, const void* order1,
   const void *X, const void *Kp, const void *Ke, const void *order1,          \
       const void *ins1, const void *offs1, const void *order2,                \
       const void *ins2, const void *offs2, void *Y, int B, int N1, int N2,    \
-      int C, int E1, int E2, int rows, void *stream
+      int C, int E1, int E2, int nc, int vec, void *stream
 #define FPM_LARGE_ARGS                                                        \
   const void *X, const void *Ke, const void *order1, const void *ins1,        \
       const void *offs1, const void *order2, const void *ins2,                \
@@ -243,13 +277,14 @@ int launch_large(const void* X, const void* Ke, const void* order1,
 
 extern "C" int fpm_assoc_bucket_f32(FPM_BUCKET_ARGS) {
   return launch_bucket<float>(X, Kp, Ke, order1, ins1, offs1, order2, ins2,
-                              offs2, Y, B, N1, N2, C, E1, E2, rows, stream);
+                              offs2, Y, B, N1, N2, C, E1, E2, nc, vec,
+                              stream);
 }
 
 extern "C" int fpm_assoc_bucket_bf16(FPM_BUCKET_ARGS) {
   return launch_bucket<__nv_bfloat16>(X, Kp, Ke, order1, ins1, offs1, order2,
                                       ins2, offs2, Y, B, N1, N2, C, E1, E2,
-                                      rows, stream);
+                                      nc, vec, stream);
 }
 
 extern "C" int fpm_assoc_large_f32(FPM_LARGE_ARGS) {

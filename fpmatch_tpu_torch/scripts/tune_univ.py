@@ -16,14 +16,16 @@ a layout of the TPU's matrix unit and has no counterpart. Two things differ:
 * `ms` is the median of CUDA-event times of one `assoc_matvec_univ` call with
   KeR given, the L2 cache flushed before each (the JAX script's chained slope
   cancels a per-dispatch cost of its runtime that the card does not have).
-  `kernel_ms` is the CUDA kernel alone, `spill_ms` the spilled part (K2 / K3
-  launches), `err_vs_plain` the largest difference from
+  `kernel_ms` is the one launch of the CUDA kernel alone (kept terms, spill
+  terms and Kp X together: no separate spill path is left to time, so the
+  rows carry no `spill_ms`), `err_vs_plain` the largest difference from
   `assoc_matvec_univ_plain` relative to its largest value, measured on the
   same device, and `bit_identical` whether two calls gave the same bits.
 
 The sweep first runs `kernels.inoculate.inoculate` (one first launch in every
-kernel library, before anything is timed). On `--device cpu` the wrapper is
-the plain version and every time is a host-clock time of the CPU.
+kernel library, before anything is timed). On `--device cpu` the wrapper (and
+`kernel_ms`) is the plain version and every time is a host-clock time of the
+CPU.
 """
 from __future__ import annotations
 
@@ -122,25 +124,27 @@ def run_one(r1: int, r2: int, prec: str, device="cuda",
     plan = hplan.to(device)
     dt = k4.compute_dtype(X, prec)
     KeR = k4.gather_ke_blocks(Ke, plan, dtype=dt)
-    call = lambda: k4.assoc_matvec_univ(X, Kp, Ke, plan, KeR, precision=prec)
+    cuda = device.type == "cuda"
+    if cuda:
+        kernel = lambda: k4.launch_kernel(X, Kp, Ke, KeR, plan, prec)
+    else:
+        kernel = lambda: k4.assoc_matvec_univ_plain(X, Kp, Ke, plan, KeR,
+                                                    precision=prec)
+    call = lambda: k4.assoc_matvec_univ(X, Kp, Ke, plan, KeR,
+                                        precision=prec)
     got, again = call(), call()
     want = k4.assoc_matvec_univ_plain(X, Kp, Ke, plan, KeR, precision=prec)
     err = float((got - want).abs().max()) / max(float(want.abs().max()),
                                                 1e-30)
     flush = l2_flush(device)
     ms = time_ms(call, device, reps, flush)
-    Xp = k4.halo(X, plan, dt)
-    kept = k4.launch_kernel if device.type == "cuda" else \
-        k4.kept_terms_plain
-    kernel_ms = time_ms(lambda: kept(Xp, KeR, plan), device, reps, flush)
-    spill_ms = time_ms(lambda: k4.spill_terms(X, Ke, plan), device, reps,
-                       flush)
+    kernel_ms = time_ms(kernel, device, reps, flush)
     nnz = Ke.shape[0] * Ke.shape[1] + n * n
     return {"r1": r1, "r2": r2, "prec": prec, "b1": hplan.b1, "b2": hplan.b2,
             "spill": int(len(hplan.spill1) + len(hplan.spill2)),
             "ker_mb": round(KeR.numel() * KeR.element_size() / 1e6, 1),
             "ms": ms, "edges_per_s": round(nnz / (ms * 1e-3), 0),
-            "kernel_ms": kernel_ms, "spill_ms": spill_ms,
+            "kernel_ms": kernel_ms,
             "err_vs_plain": err,
             "bit_identical": bool(torch.equal(got, again)),
             "device": torch.cuda.get_device_name(device)

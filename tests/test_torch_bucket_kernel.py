@@ -18,6 +18,7 @@ from fpmatch_tpu.kernels.assoc_pallas import (assoc_matvec_pallas,
                                               assoc_matvec_pallas_large)
 from fpmatch_tpu.ops.assoc import assoc_matvec as j_assoc_matvec
 from fpmatch_tpu_torch.kernels import assoc_bucket as kb
+from fpmatch_tpu_torch.kernels._cells import channel_tiling
 from fpmatch_tpu_torch.ops import assoc as t_assoc
 from test_torch_utils import t2n
 
@@ -261,8 +262,9 @@ def test_plan_is_shared_between_calls_on_the_same_edge_lists(rng):
 
 def test_wrapper_checks_and_cpu_route(rng, monkeypatch):
     """On CPU tensors the wrappers take the plain versions and launch
-    nothing; wrong shapes and types raise; a row of X too wide for the
-    bucket kernel's shared memory is refused with a pointer to the other."""
+    nothing; wrong shapes and types raise; the channel split of the cell
+    kernels: 16-byte vectors where C allows, scalar channels otherwise, any
+    width of X."""
     X, Kp, Ke, idx, _, _ = _rand_case(rng, 2, 8, 8, 20, 20, 2)
     args = [tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx)]
     before = dict(kb.LAUNCHES)
@@ -282,12 +284,19 @@ def test_wrapper_checks_and_cpu_route(rng, monkeypatch):
         kb.assoc_matvec_large(*args[:3], args[3][:, :5], *args[4:])
     with pytest.raises(ValueError):
         kb.assoc_matvec_large(*args, block_c=0)
-    assert kb._bucket_rows(64 * 17, 4) == 8
-    assert kb._bucket_rows(256 * 17, 4) == 8
-    assert kb._bucket_rows(600 * 17, 2) == 8          # bf16 rows are half as wide
-    assert 1 <= kb._bucket_rows(600 * 17, 4) < 8
-    with pytest.raises(ValueError, match="assoc_matvec_large"):
-        kb._bucket_rows(4096 * 17, 4)
+    z = lambda c, dt=torch.float32: torch.zeros(1, 2, 3, c, dtype=dt)
+    assert channel_tiling(z(16)) == (4, True)
+    assert channel_tiling(z(16, torch.bfloat16)) == (8, True)
+    assert channel_tiling(z(64)) == (4, True)
+    for dt in (torch.float32, torch.bfloat16):
+        assert channel_tiling(z(1, dt)) == (1, False)
+        for c in (3, 17):
+            assert channel_tiling(z(c, dt)) == (32, False)
+    assert channel_tiling(z(12, torch.bfloat16)) == (32, False)
+    assert channel_tiling(z(17)[..., 1:]) == (32, False)     # unaligned
+    wide = [torch.zeros(1, 4, 4096, 17), torch.zeros(1, 4, 4096),
+            torch.zeros(1, 0, 0)] + [torch.zeros(1, 0, dtype=torch.int32)] * 4
+    assert torch.equal(kb.assoc_matvec_bucket(*wide), wide[0])
 
 
 def test_auto_dispatch_on_a_cuda_tensor(monkeypatch):
