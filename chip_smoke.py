@@ -16,17 +16,21 @@ Phases (each prints its own lines; any failure exits non-zero):
               events
   3. kernels  assoc_univ_v3 (CUDA) against its plain PyTorch version and
               against the plain ops of ops.assoc (no plan) on the card, at
-              the serving shapes; assoc_bucket and assoc_large (CUDA) against
-              theirs at B=8 / N=64 / E=384 and B=2 / N=256 / E=1536, and
-              assoc_bucket on a 1 x 4 x 4096 x 17 row; assoc_univ (CUDA, one
-              launch per call) against its plain version and against
-              assoc_univ_v3 on n=600 Delaunay pairs at r1=32, r2=128 (C=16;
-              C=1 / 17, both orientations; f32 "highest" / "default" and bf16
-              X), a spill-heavy random graph and a degree-80 star (both
-              kernels); two launches bit-identical; times by CUDA events,
-              each timed case also
-              timing the library call for the same function
-              (torch.sparse.mm of K built as one CSR matrix)
+              the serving shapes and at shapes that take the launcher's
+              other paths (C=32, C=33, a 700-column row); bf16 X to 1e-5 of
+              the range too, a limit that refuses all-f32 Ke;
+              assoc_bucket and assoc_large (CUDA) against theirs at B=8 /
+              N=64 / E=384 and B=2 / N=256 / E=1536 (bf16 X the same way,
+              refusing f32 products), and assoc_bucket on a 1 x 4 x 4096 x
+              17 row; assoc_univ (CUDA, one launch per call) against its
+              plain version and against assoc_univ_v3 on n=600 Delaunay
+              pairs at r1=32, r2=128 (C=16; C=1 / 17, both orientations; f32
+              "highest" / "default" and bf16 X), a spill-heavy random graph
+              and a degree-80 star (both kernels); two launches
+              bit-identical; times by CUDA events (assoc_univ_v3 also by
+              torch.profiler), each timed case also timing the library call
+              for the same function (torch.sparse.mm of K built as one CSR
+              matrix)
   4. serve    UNIV route (n_max=600, e_max=3840, univ=600) at full model
               width, a few requests through cli.match.match_arrays
   5. parity   one UNIV request against the port's own CPU run (plain kernel
@@ -205,6 +209,15 @@ def relerr(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def values_off(y, want):
+    """Values of y further than 1e-5 of want's range from it: a count that is
+    printed. With bf16 X, K1, K2 and K3 round each term as their plain
+    versions do and only the order of the f32 sums differs, so they are held
+    to 1e-5 of the range (`relerr`) as in f32; a result that rounds
+    elsewhere puts most values past it."""
+    return int(((y - want).abs() > 1e-5 * float(want.abs().max())).sum())
+
+
 def time_ms(fn, reps=20, flush=None):
     """Median CUDA-event time of one call: tune_univ's helper on the card
     (`flush`, a big tensor, is overwritten before each call)."""
@@ -252,9 +265,11 @@ def library_case(r, call, want, flush):
 
 def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
     """One comparison at bucket N with n1 / n2 real nodes, Ke padded to
-    (E, E). Returns a dict of errors (and times when `timed`)."""
+    (E, E), the plan made as the serving CLI makes it. Returns a dict of
+    errors (and times when `timed`); a timed case also shows that the bf16
+    check refuses the kernel's old rounding (all-f32 Ke)."""
     _, s1, d1 = delaunay(rng, n1)
-    _, s2, d2 = delaunay(rng, n2)
+    P2, s2, d2 = delaunay(rng, n2)
     if len(s1) > E or len(s2) > E:
         fail(f"e_max {E} too small for {len(s1)} / {len(s2)} edges")
     g = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
@@ -265,7 +280,8 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
     Ke = torch.zeros(E, E)
     Ke[:len(s1), :len(s2)] = torch.randn(len(s1), len(s2), generator=g)
     X, Kp, Ke = X.to(DEV), Kp.to(DEV), Ke.to(DEV)
-    plan = k1.plan_univ_v3(N, N, s1, d1, s2, d2, transpose=transpose).to(DEV)
+    plan = k1.plan_univ_v3(k1.pad_points(P2, N), s1, d1, s2, d2,
+                           transpose=transpose, n1=N).to(DEV)
 
     got = k1.assoc_matvec_univ_v3(X, Kp, Ke, plan)
     torch.cuda.synchronize()
@@ -277,26 +293,43 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
                                   transpose=transpose)[0]
     Xb = X.bfloat16()
     got_bf = k1.assoc_matvec_univ_v3(Xb, Kp, Ke, plan)
+    again_bf = k1.assoc_matvec_univ_v3(Xb, Kp, Ke, plan)
+    again = k1.assoc_matvec_univ_v3(X, Kp, Ke, plan)
     plain_bf = k1.assoc_matvec_univ_v3_plain(Xb, Kp, Ke, plan)
     torch.cuda.synchronize()
     r = {"N": N, "n1": n1, "n2": n2, "C": C, "transpose": transpose,
          "E1": len(s1), "E2": len(s2), "S1": plan.s1, "S2": plan.s2,
+         "spilled": [int((~plan.keep1).sum()), int((~plan.keep2).sum())],
          "err_vs_plain": relerr(got, plain),
          "err_vs_noplan": relerr(got, noplan),
          "bf16_err_vs_plain_bf16": relerr(got_bf, plain_bf),
+         "bf16_values_off": values_off(got_bf, plain_bf),
          "bf16_err_vs_f32": relerr(got_bf, got),
-         "max_abs_err": float((got - plain).abs().max())}
+         "max_abs_err": float((got - plain).abs().max()),
+         "bit_reproducible": bool(torch.equal(got, again)
+                                  and torch.equal(got_bf, again_bf))}
     for k in ("err_vs_plain", "err_vs_noplan", "bf16_err_vs_plain_bf16"):
         if not r[k] <= 1e-5:
             fail(f"assoc_univ_v3 {k} = {r[k]:.3e} > 1e-5 at {r}")
+    if not r["bit_reproducible"]:
+        fail(f"assoc_univ_v3: two launches on the same inputs differ at {r}")
     if not torch.isfinite(got).all():
         fail("assoc_univ_v3 produced non-finite values")
     if timed:
+        # the same limit refuses the rounding the kernel had before: f32 Ke
+        # on every pair (the plain version on the bf16 values in f32)
+        f32_ke = k1.assoc_matvec_univ_v3_plain(Xb.float(), Kp, Ke, plan)
+        r["bf16_f32_ke_err"] = relerr(f32_ke, plain_bf)
+        r["bf16_values_off_f32_ke"] = values_off(f32_ke, plain_bf)
+        if r["bf16_f32_ke_err"] <= 1e-5:
+            fail(f"assoc_univ_v3, bf16 X: the limit passes all-f32 Ke at "
+                 f"{r}")
         # least work for THIS input: X, Kp and the real block of Ke read
-        # once, the slot tables read once, Y written once; 2 flops per
+        # once, the kernel's tables read once, Y written once; 2 flops per
         # (association edge, channel) + the Kp term
         e1r, e2r = len(s1), len(s2)
-        tables = 2 * 4 * (N * plan.s1 + N * plan.s2)
+        tables = sum(t.numel() * t.element_size()
+                     for t in plan.kernel_tables())
         nbytes = 4 * (2 * N * N * C + N * N + e1r * e2r) + tables
         flops = 2.0 * C * e1r * e2r + 2.0 * N * N * C
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -304,6 +337,11 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
         r.update(
             ms=time_ms(lambda: k1.assoc_matvec_univ_v3(X, Kp, Ke, plan),
                        flush=flush),
+            # the kernel alone (torch.profiler): `ms` also holds what of the
+            # wrapper's host time outlasts the flush
+            kernel_ms=tune_univ.profiled_ms(
+                lambda: k1.assoc_matvec_univ_v3(X, Kp, Ke, plan),
+                "assoc_univ_v3", flush=flush),
             ms_warm_l2=time_ms(
                 lambda: k1.assoc_matvec_univ_v3(X, Kp, Ke, plan)),
             ms_bf16=time_ms(
@@ -329,23 +367,32 @@ def phase_kernels():
     rng = np.random.default_rng(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
     rows = []
-    for (n1, n2) in ((600, 600), (520, 600)):
-        for C in (1, 17):
-            for transpose in (True, False):
-                timed = (n1, n2) == (600, 600) and transpose
-                r = kernel_case(rng, 600, n1, n2, 3840, C, transpose, flush,
-                                timed)
-                rows.append(r)
-                say("[3 kernels] " + json.dumps(r))
+    # (bucket, n1, n2, e_max, C, transpose): the model's channel counts, and
+    # C=16 (each staged node padded by one word); then the launcher's other
+    # paths: C=32 (two staged buffers over the budget) and C=33 (two channel
+    # chunks) read X and Ke from global memory, and a row of 700 columns is
+    # staged over two tiles and written straight from registers
+    cases = [(600, n1, n2, 3840, C, t) for (n1, n2) in ((600, 600),
+                                                        (520, 600))
+             for C in (1, 17) for t in (True, False)] + [
+        (600, 600, 600, 3840, C, True) for C in (16, 32, 33)] + [
+        (700, n1, n2, 4480, 4, t) for (n1, n2, t) in ((650, 700, True),
+                                                      (700, 650, False))]
+    for N, n1, n2, E, C, transpose in cases:
+        timed = (N, n1, n2, transpose) == (600, 600, 600, True) and C in (1,
+                                                                        17)
+        r = kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed)
+        rows.append(r)
+        say("[3 kernels] " + json.dumps(r))
     # zero-edge sides: Ke[:0] with edges on side 2 only, then no edges
     n, C = 130, 4
-    _, s2, d2 = delaunay(rng, n)
+    P2, s2, d2 = delaunay(rng, n)
     empty = np.zeros(0, np.int64)
     X = torch.randn(n, n, C, device=DEV)
     Kp = torch.randn(n, n, device=DEV)
     for (a, b) in ((s2, d2), (empty, empty)):
         Ke = torch.zeros(8, len(a), device=DEV)[:0]
-        plan = k1.plan_univ_v3(n, n, empty, empty, a, b).to(DEV)
+        plan = k1.plan_univ_v3(P2, empty, empty, a, b, n1=n).to(DEV)
         got = k1.assoc_matvec_univ_v3(X, Kp, Ke, plan)
         torch.cuda.synchronize()
         e = relerr(got, Kp[..., None] * X)
@@ -438,12 +485,23 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
              "err_vs_plain": relerr(got, want),
              "err_vs_ops": relerr(got, ops),
              "bf16_err_vs_plain_bf16": relerr(got_bf, want_bf),
+             "bf16_values_off": values_off(got_bf, want_bf),
              "bf16_err_vs_f32": relerr(got_bf, got),
              "max_abs_err": float((got - want).abs().max()),
              "bit_reproducible": bool(torch.equal(got, again))}
         for k in ("err_vs_plain", "err_vs_ops", "bf16_err_vs_plain_bf16"):
             if not r[k] <= 1e-5:
                 fail(f"{name} {k} = {r[k]:.3e} > 1e-5 at {r}")
+        if timed:
+            # the same limit refuses the rounding the kernels had before:
+            # bf16 X in f32 products (the kernel on the bf16 values in f32)
+            unrounded = kern(Xb.float(), Kp, Ke, *edges,
+                             transpose=transpose, **masks)
+            r["bf16_f32_products_err"] = relerr(unrounded, want_bf)
+            r["bf16_values_off_f32_products"] = values_off(unrounded,
+                                                           want_bf)
+            if r["bf16_f32_products_err"] <= 1e-5:
+                fail(f"{name}, bf16 X: the limit passes f32 products at {r}")
         if not r["bit_reproducible"]:
             fail(f"{name}: two launches on the same inputs differ")
         if not torch.isfinite(got).all():
@@ -598,7 +656,8 @@ def univ_case(tag, pts1, pts2, edges, X, Kp, Ke, r1, r2, transpose, prec,
                 fail(f"assoc_univ, bf16 X: the comparison passes a result "
                      f"without the bf16 rounding ({name}) at {r}")
     elif prec == "highest":
-        p1 = k1.plan_univ_v3(n, n, *edges, transpose=transpose).to(DEV)
+        p1 = k1.plan_univ_v3(pts2, *edges, transpose=transpose,
+                             n1=n).to(DEV)
         r["err_vs_k1"] = relerr(got, k1.assoc_matvec_univ_v3(X, Kp, Ke, p1))
     for k in ("err_vs_plain", "err_vs_k1"):
         if X.dtype != torch.bfloat16 and k in r and not r[k] <= 1e-5:
@@ -682,7 +741,8 @@ def phase_kernels_univ():
     Kp = torch.randn(n, n, device=DEV, generator=g)
     Ke = torch.randn(len(s1), len(s2), device=DEV, generator=g)
     for transpose in (True, False):
-        p1 = k1.plan_univ_v3(n, n, s1, d1, s2, d2, transpose=transpose)
+        p1 = k1.plan_univ_v3(pts[1], s1, d1, s2, d2, transpose=transpose,
+                             n1=n)
         if p1.s1 != 80:
             fail(f"the star's row has {p1.s1} slots, not 80")
         p1 = p1.to(DEV)
@@ -690,11 +750,18 @@ def phase_kernels_univ():
         torch.cuda.synchronize()
         b = k1.assoc_matvec_univ_v3(X, Kp, Ke, p1)
         e = relerr(a, k1.assoc_matvec_univ_v3_plain(X, Kp, Ke, p1))
+        ab = k1.assoc_matvec_univ_v3(X.bfloat16(), Kp, Ke, p1)
+        want_bf = k1.assoc_matvec_univ_v3_plain(X.bfloat16(), Kp, Ke, p1)
+        e_bf = relerr(ab, want_bf)
         say(f"[3 kernels] assoc_univ_v3 degree-80 star, transpose="
             f"{transpose}: S1={p1.s1}, err vs plain {e:.2e}, "
-            f"bit-identical {bool(torch.equal(a, b))}")
+            f"bit-identical {bool(torch.equal(a, b))}; bf16 X err vs plain "
+            f"{e_bf:.2e}, {values_off(ab, want_bf)} values beyond 1e-5 of "
+            f"the range")
         if not e <= 1e-5 or not torch.equal(a, b):
             fail("assoc_univ_v3 disagrees on the degree-80 star")
+        if not e_bf <= 1e-5:
+            fail("assoc_univ_v3 disagrees on the degree-80 star, bf16 X")
         r = univ_case("degree-80 star", pts[0], pts[1], (s1, d1, s2, d2), X,
                       Kp, Ke, 8, 128, transpose, "highest")
         rows.append(r)
@@ -1220,9 +1287,9 @@ def main():
         f"{sum(r['ms'] < main4['library_ms'] for r in rows10)} of "
         f"{len(rows10)}; slowest row {max(r['ms'] for r in rows10):.4f} ms")
 
-    keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "ms_warm_l2", "ms_bf16",
-             "plain_ms", "noplan_ms", "library_ms", "bound_ms", "bound_by",
-             "bytes", "flops")
+    keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "kernel_ms",
+             "ms_warm_l2", "ms_bf16", "plain_ms", "noplan_ms", "library_ms",
+             "bound_ms", "bound_by", "bytes", "flops")
     keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "ms_warm_l2",
               "ms_bf16", "plain_ms", "ops_ms", "library_ms", "bound_ms",
               "bound_by", "bytes", "flops")

@@ -144,8 +144,10 @@ def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
     plan = None
     if univ_kernel or (univ_kernel is None and n_max >= 256):
         # plan over the PADDED bucket: pad nodes have no edges, Kp/Ke = 0
-        from ..kernels.assoc_univ_v3 import plan_univ_v3
-        plan = plan_univ_v3(n_max, n_max, s1, d1, s2, d2, transpose=True)
+        # and x = +inf-ish coordinates (sorted last), as the JAX CLI pads
+        from ..kernels.assoc_univ_v3 import pad_points, plan_univ_v3
+        plan = plan_univ_v3(pad_points(P2, n_max), s1, d1, s2, d2,
+                            transpose=True, n1=n_max)
     return batch, plan
 
 

@@ -12,9 +12,10 @@ fused) and `_kernel_large` reached through `assoc_matvec_pallas_large`
 
 with (out, in) = (src, dst), or (dst, src) for `transpose=True` (K^T, the
 model's orientation). Edge lists are (B, E) integers; padded edge slots alias
-node 0 and MUST carry Ke == 0. X is float32 or bfloat16 (bf16: gathered and
-multiplied from the bf16 values, the JAX kernels' "default" precision; Ke, Kp,
-the accumulator and the result stay f32).
+node 0 and MUST carry Ke == 0. X is float32 or bfloat16. With bf16 X each
+term rounds as the JAX op's bf16 multiply (`W * Ke.astype(W.dtype)`): Ke is
+rounded to bf16 and so is the product, bf16(bf16(Ke) X); the sums, `Kp X`
+and the result are f32, as with f32 X.
 
 Re-thought for a GPU: each graph's edges are grouped once by their scatter
 endpoint (`plan_bucket`: a stable sort + counts + cumsum on the device, CSR
@@ -184,6 +185,7 @@ def _edge_terms_plain(X, Ke, plan: BucketPlan) -> torch.Tensor:
     S1, S2 = in1_slot.shape[2], in2_slot.shape[2]
     Kz = torch.nn.functional.pad(Ke, (0, 1, 0, 1))       # zero row / column
     Xf = X.float()
+    rounded = X.dtype == torch.bfloat16
     bi = torch.arange(B, device=X.device)
     cols = in2_slot.reshape(B, 1, n2 * S2, 1).expand(B, n1, n2 * S2, C)
     e2 = e2_slot.reshape(B, 1, n2 * S2)
@@ -192,11 +194,15 @@ def _edge_terms_plain(X, Ke, plan: BucketPlan) -> torch.Tensor:
         rows = Xf[bi[:, None], in1_slot[:, :, s]]            # (B, n1, n2, C)
         g = rows.gather(2, cols).reshape(B, n1, n2, S2, C)
         ke = Kz[bi[:, None, None], e1_slot[:, :, s, None], e2]
+        ke = ke.reshape(B, n1, n2, S2, 1)
+        if rounded:     # bf16(bf16(Ke) X), as the JAX op's bf16 multiply
+            term = (g * ke.bfloat16().float()).bfloat16().float()
+        else:
+            term = g * ke
         # pad slots are in no run: the kernel never reads them, so they add
         # an exact zero here even where the value they gather is not finite
         real = (e1_slot[:, :, s, None] < E1) & (e2 < E2)
-        term = torch.where(real.reshape(B, n1, n2, S2, 1),
-                           g * ke.reshape(B, n1, n2, S2, 1), 0.0)
+        term = torch.where(real.reshape(B, n1, n2, S2, 1), term, 0.0)
         Y = Y + term.sum(dim=3)
     return Y
 

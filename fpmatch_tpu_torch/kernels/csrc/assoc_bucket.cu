@@ -11,7 +11,9 @@
 //              + sum_{e1: out1(e1)=a} sum_{e2: out2(e2)=j}
 //                    Ke[b,e1,e2] * X[b, in1(e1), in2(e2), c]
 //
-// X is f32 or bf16, Ke / Kp / the accumulator / Y are f32.
+// X is f32 or bf16, Ke / Kp / the accumulator / Y are f32. With bf16 X each
+// term rounds as the JAX op's bf16 multiply: bf16(bf16(Ke) * X), then the f32
+// sum; with f32 X it is an f32 fma.
 //
 // What the TPU kernels needed and these do not: the one-hot gather / scatter
 // matmuls on the MXU, the channel-major transpose of X, the (E, 1) index
@@ -44,17 +46,35 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 using fpm_common::load_channels;
+using fpm_common::round_bf16;
 using fpm_common::store_channels;
 using fpm_common::to_f32;
 
 constexpr int kMaxThreads = 256;
 constexpr int kStage = 128;   // edge ids of one output row staged at a time
 constexpr int kWarps = 4;     // warps per block of the bucket kernel
+
+// One edge term, acc + ke x. f32 X: one fma. bf16 X: as the JAX op's
+// `W * Ke.astype(W.dtype)`, Ke rounded to bf16 (`ke_for`, once per term) and
+// the product rounded to bf16 before the f32 sum.
+template <typename XT>
+__device__ __forceinline__ float ke_for(float ke) {
+  if constexpr (std::is_same<XT, __nv_bfloat16>::value) return round_bf16(ke);
+  return ke;
+}
+template <typename XT>
+__device__ __forceinline__ float add_term(float ke, float x, float acc) {
+  if constexpr (std::is_same<XT, __nv_bfloat16>::value)
+    return acc + round_bf16(ke * x);
+  return fmaf(ke, x, acc);
+}
 
 // ---------------------------------------------------------------- bucket scale
 struct BucketGeom {
@@ -120,11 +140,11 @@ __global__ void __launch_bounds__(kWarps * 32) assoc_bucket_kernel(
       const XT* xc = Xb + (long long)in2[p] * g.C;
       for (int r = 0; r < n; ++r) {
         const int2 u = run1[wi][r];
-        const float kv = kc[(long long)u.x * g.E2];
+        const float kv = ke_for<XT>(kc[(long long)u.x * g.E2]);
         float x[NC];
         load_channels<XT, NC, kVec>(xc + (long long)u.y * rowX, nc, x);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] = fmaf(kv, x[c], acc[c]);
+        for (int c = 0; c < NC; ++c) acc[c] = add_term<XT>(kv, x[c], acc[c]);
       }
     }
   }
@@ -232,8 +252,9 @@ __global__ void assoc_large_kernel(
         const float* kecol = Keb + ord2[p];
         const XT* xcol = Xb + (long long)in2[p] * C + c;
         for (int r = 0; r < nr; ++r)
-          acc = fmaf(kecol[(long long)se1[r] * E2],
-                     to_f32(xcol[(long long)sin1[r] * row_elems]), acc);
+          acc = add_term<XT>(ke_for<XT>(kecol[(long long)se1[r] * E2]),
+                             to_f32(xcol[(long long)sin1[r] * row_elems]),
+                             acc);
       }
     }
     if (live) yrow[(long long)j * C + c] = acc;

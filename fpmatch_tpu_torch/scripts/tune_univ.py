@@ -112,6 +112,30 @@ def time_ms(fn: Callable, device, reps: int = 20,
     return float(np.median(times))
 
 
+def profiled_ms(fn: Callable, key: str, reps: int = 10,
+                flush: Optional[torch.Tensor] = None) -> Optional[float]:
+    """Device time of one launch of the CUDA kernels whose name holds `key`,
+    from torch.profiler over `reps` calls of `fn` (one such launch each,
+    `flush` overwritten before each): the kernel alone, without the host
+    time that `time_ms` may hold. None unless the profiler caught exactly
+    `reps` launches, so that a short capture never reads as a fast kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if key in e.key]
+    count = sum(e.count for e in events)
+    if count != reps:
+        return None
+    return sum(e.device_time_total for e in events) / count / 1e3
+
+
 def run_one(r1: int, r2: int, prec: str, device="cuda",
             inputs: Optional[Inputs] = None, reps: int = 20) -> Dict:
     """One (r1, r2, precision) row of the sweep."""
