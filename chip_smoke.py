@@ -20,9 +20,14 @@ Phases (each prints its own lines; any failure exits non-zero):
               other paths (C=32, C=33, a 700-column row); bf16 X to 1e-5 of
               the range too, a limit that refuses all-f32 Ke;
               assoc_bucket and assoc_large (CUDA) against theirs at B=8 /
-              N=64 / E=384 and B=2 / N=256 / E=1536 (bf16 X the same way,
-              refusing f32 products), and assoc_bucket on a 1 x 4 x 4096 x
-              17 row; assoc_univ (CUDA, one launch per call) against its
+              N=64 / E=384 and B=2 / N=256 / E=1536 (C=1 / 17, both
+              orientations), B=1 / N=600 / E=3840, C=33 (two channel
+              slices), C=16 (padded staged nodes), multi-edge lists without
+              masks and a 1 x 4 x 4096 x 17 row, so every path of
+              assoc_large's launcher (bf16 X the same way, refusing f32
+              products; assoc_large's timed rows carry assoc_bucket's time
+              on the same inputs and its own per block_c); assoc_univ
+              (CUDA, one launch per call) against its
               plain version and against assoc_univ_v3 on n=600 Delaunay
               pairs at r1=32, r2=128 (C=16; C=1 / 17, both orientations; f32
               "highest" / "default" and bf16 X), a spill-heavy random graph
@@ -444,7 +449,9 @@ def bucket_inputs(rng, B, N, E, C, n_lo, n_hi, multi_edges=False):
 def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
                 multi_edges=False):
     """K2 and K3 against their plain versions and against the plain ops of
-    ops.assoc, f32 and bf16 X. Returns one row per kernel."""
+    ops.assoc, f32 and bf16 X. Returns one row per kernel; K3's row names
+    the path its launcher took and, when timed, carries K2's times on the
+    same inputs (`k2_ms`) and, at C=17, K3's time per `block_c`."""
     X, Kp, Ke, s1, d1, s2, d2, m1, m2, n_e = bucket_inputs(
         rng, B, N, E, C, n_lo, n_hi, multi_edges)
     masks = {} if multi_edges else dict(e1_mask=m1, e2_mask=m2)
@@ -477,6 +484,7 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
         again = kern(X, Kp, Ke, *edges, transpose=transpose, **masks)
         want = plain(X, Kp, Ke, *edges, transpose=transpose, **masks)
         got_bf = kern(Xb, Kp, Ke, *edges, transpose=transpose, **masks)
+        again_bf = kern(Xb, Kp, Ke, *edges, transpose=transpose, **masks)
         want_bf = plain(Xb, Kp, Ke, *edges, transpose=transpose, **masks)
         torch.cuda.synchronize()
         r = {"kernel": name, "B": B, "N": N, "E": E, "C": C,
@@ -488,7 +496,10 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
              "bf16_values_off": values_off(got_bf, want_bf),
              "bf16_err_vs_f32": relerr(got_bf, got),
              "max_abs_err": float((got - want).abs().max()),
-             "bit_reproducible": bool(torch.equal(got, again))}
+             "bit_reproducible": bool(torch.equal(got, again)
+                                      and torch.equal(got_bf, again_bf))}
+        if name == "assoc_large":
+            r["path"] = large_path(X, Ke)
         for k in ("err_vs_plain", "err_vs_ops", "bf16_err_vs_plain_bf16"):
             if not r[k] <= 1e-5:
                 fail(f"{name} {k} = {r[k]:.3e} > 1e-5 at {r}")
@@ -507,10 +518,14 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
         if not torch.isfinite(got).all():
             fail(f"{name} produced non-finite values")
         if timed:
-            call = lambda x=X: kern(x, Kp, Ke, *edges, transpose=transpose,
-                                    **masks)
+            call = lambda x=X, **kw: kern(x, Kp, Ke, *edges,
+                                          transpose=transpose, **masks, **kw)
             r.update(
                 ms=time_ms(call, flush=flush),
+                # the kernel alone (torch.profiler): `ms` also holds what of
+                # the wrapper's host time outlasts the flush
+                kernel_ms=tune_univ.profiled_ms(call, name + "_kernel",
+                                                flush=flush),
                 ms_warm_l2=time_ms(call),
                 ms_bf16=time_ms(lambda: call(Xb), flush=flush),
                 plain_ms=time_ms(
@@ -523,8 +538,61 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
                 bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 **lib_row)
+            if name == "assoc_large":
+                r.update(k2_ms=rows[0]["ms"], k2_ms_bf16=rows[0]["ms_bf16"],
+                         k2_kernel_ms=rows[0]["kernel_ms"])
+                if C == 17:     # the default block_c, chosen by these times
+                    r["block_c_ms"] = {
+                        str(bc): time_ms(lambda: call(block_c=bc),
+                                         flush=flush) for bc in (8, 16, 32)}
         rows.append(r)
     return rows
+
+
+def large_path(X, Ke, block_c=k23.DEFAULT_BLOCK_C):
+    """The path K3's launcher takes for these inputs (its shape rule)."""
+    return k23.large_geometry(*X.shape, Ke.shape[1], Ke.shape[2],
+                              X.element_size(), block_c).path
+
+
+def wide_row_case(rng):
+    """A row of 4096 x 17 channels, wider than any bucket the model uses:
+    Delaunay edges on graph 2, on graph 1 one self-loop at node 0. K3 reads
+    it from global memory over seven column tiles."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    _, s2, d2 = delaunay(rng, 4096)
+    wide = [torch.randn(1, 4, 4096, 17, device=DEV, generator=g),
+            torch.randn(1, 4, 4096, device=DEV, generator=g),
+            torch.randn(1, 1, len(s2), device=DEV, generator=g),
+            torch.zeros(1, 1, dtype=torch.int32, device=DEV),
+            torch.zeros(1, 1, dtype=torch.int32, device=DEV),
+            torch.from_numpy(s2[None]).to(DEV),
+            torch.from_numpy(d2[None]).to(DEV)]
+    out = {}
+    for name, kern, plain in (
+            ("assoc_bucket", k23.assoc_matvec_bucket,
+             k23.assoc_matvec_bucket_plain),
+            ("assoc_large", k23.assoc_matvec_large,
+             k23.assoc_matvec_large_plain)):
+        errs = []
+        for X in (wide[0], wide[0].bfloat16()):
+            args = [X] + wide[1:]
+            got = kern(*args, transpose=True)
+            again = kern(*args, transpose=True)
+            torch.cuda.synchronize()
+            errs.append(relerr(got, plain(*args, transpose=True)))
+            if not torch.equal(got, again):
+                fail(f"{name}: two launches on the wide row differ")
+        out[name] = {"err_vs_plain": errs[0],
+                     "bf16_err_vs_plain_bf16": errs[1]}
+        if name == "assoc_large":
+            out[name]["path"] = large_path(wide[0], wide[2])
+        say(f"[3 kernels] {name}, a 1 x 4 x 4096 x 17 row ({len(s2)} "
+            f"graph-2 edges): {json.dumps(out[name])}, two launches "
+            f"bit-identical")
+        if not max(errs) <= 1e-5:
+            fail(f"{name} disagrees with its plain version on a wide row")
+    return out
 
 
 def phase_kernels_bucket():
@@ -540,6 +608,13 @@ def phase_kernels_bucket():
                                     flush, timed=transpose)
     rows += bucket_case(rng, 3, 64, 384, 5, 40, 64, True, flush, timed=False,
                         multi_edges=True)
+    # the other E1·E2 >= 1 M shape (B=1 at the UNIV bucket), two channel
+    # slices (C=33) and padded staged nodes (C=16, an even word count)
+    rows += bucket_case(rng, 1, 600, 3840, 17, 560, 600, True, flush,
+                        timed=True)
+    for C in (33, 16):
+        rows += bucket_case(rng, 2, 256, 1536, C, 200, 256, True, flush,
+                            timed=False)
     for r in rows:
         say("[3 kernels] " + json.dumps(r))
     # the grouping prologue (sort + counts + cumsum), shared by the three
@@ -550,27 +625,14 @@ def phase_kernels_bucket():
         s1.clone(), d1, s2, d2, 64, 64, True, m1, m2))
     say(f"[3 kernels] plan_bucket (B=8, E=384, once per batch): "
         f"{plan_ms:.4f} ms")
-    # a row of 4096 x 17 channels, wider than any bucket the model uses:
-    # Delaunay edges on graph 2, on graph 1 one self-loop at node 0
-    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
-    _, s2, d2 = delaunay(rng, 4096)
-    wide = [torch.randn(1, 4, 4096, 17, device=DEV, generator=g),
-            torch.randn(1, 4, 4096, device=DEV, generator=g),
-            torch.randn(1, 1, len(s2), device=DEV, generator=g),
-            torch.zeros(1, 1, dtype=torch.int32, device=DEV),
-            torch.zeros(1, 1, dtype=torch.int32, device=DEV),
-            torch.from_numpy(s2[None]).to(DEV),
-            torch.from_numpy(d2[None]).to(DEV)]
-    got = k23.assoc_matvec_bucket(*wide, transpose=True)
-    torch.cuda.synchronize()
-    e = relerr(got, k23.assoc_matvec_bucket_plain(*wide, transpose=True))
-    say(f"[3 kernels] assoc_bucket, a 1 x 4 x 4096 x 17 row ({len(s2)} "
-        f"graph-2 edges): err vs plain {e:.2e}")
-    if not e <= 1e-5:
-        fail("assoc_bucket disagrees with its plain version on a wide row")
+    wide = wide_row_case(rng)
+    paths = {r["path"] for r in rows if "path" in r}
+    paths.add(wide["assoc_large"]["path"])
+    if paths != {"staged", "global"}:
+        fail(f"phase 3 did not run every path of K3's launcher: {paths}")
     restore_counts(saved)
     del flush
-    return rows, plan_ms
+    return rows, plan_ms, wide
 
 
 # ------------------------------------------------ 3c blocked UNIV kernel (K4)
@@ -1238,7 +1300,7 @@ def main():
             "cannot be drawn here (not on the device path)")
     row5 = phase_build()
     rows1 = phase_kernels()
-    rows23, plan_ms = phase_kernels_bucket()
+    rows23, plan_ms, wide = phase_kernels_bucket()
     rows4 = phase_kernels_univ()
 
     cfg = cli_config(600, 3840, 600)
@@ -1290,9 +1352,10 @@ def main():
     keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "kernel_ms",
              "ms_warm_l2", "ms_bf16", "plain_ms", "noplan_ms", "library_ms",
              "bound_ms", "bound_by", "bytes", "flops")
-    keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "ms_warm_l2",
-              "ms_bf16", "plain_ms", "ops_ms", "library_ms", "bound_ms",
-              "bound_by", "bytes", "flops")
+    keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "kernel_ms",
+              "ms_warm_l2", "ms_bf16", "plain_ms", "ops_ms", "library_ms",
+              "bound_ms", "bound_by", "bytes", "flops")
+    keys3 = keys23 + ("path", "k2_ms", "k2_ms_bf16", "k2_kernel_ms")
     keys4 = ("n", "C", "r1", "r2", "prec", "b1", "b2", "spill1", "spill2",
              "ker_mb", "ms", "kernel_ms", "gather_ms",
              "plain_ms", "k1_ms", "library_ms", "bound_ms", "bound_by",
@@ -1311,7 +1374,7 @@ def main():
                      lambda r: (r["N"], r["C"]) == (64, 17), keys23),
         kernel_entry("assoc_large", k23.SOURCE, of("assoc_large"),
                      launches3["assoc_large"], k23.REPLACES["assoc_large"],
-                     lambda r: (r["N"], r["C"]) == (256, 17), keys23),
+                     lambda r: (r["N"], r["C"]) == (256, 17), keys3),
         # ms: the whole wrapper with KeR given, as tune_univ times it
         kernel_entry("assoc_univ", k4.SOURCE, rows4,
                      launches4["assoc_univ"], k4.REPLACES,
@@ -1322,6 +1385,12 @@ def main():
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
+    # K3 per block_c at its main shape; both kernels on the 4096-column row
+    kernels["kernels"][2]["block_c_ms"] = next(
+        r["block_c_ms"] for r in of("assoc_large") if "block_c_ms" in r
+        and r["N"] == 256)
+    for k in kernels["kernels"][1:3]:
+        k["wide_row"] = wide[k["name"]]
     kernels["kernels"][3]["sweep"] = [
         {k: r[k] for k in ("r1", "r2", "prec", "b1", "b2", "spill", "ms",
                            "kernel_ms", "edges_per_s", "err_vs_plain")}

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's `kernels/assoc_pallas.py` — the Pallas
 `_kernel` reached through `assoc_matvec_pallas` (everything resident, `Kp*X`
 fused) and `_kernel_large` reached through `assoc_matvec_pallas_large`
-(blocked, `Kp*X` added outside). The same function and contract as
+(blocked, `Kp*X` added after the edge sum). The same function and contract as
 `ops.assoc.assoc_matvec`, batch-native:
 
     Y[b,a,j,c] = Kp[b,a,j] X[b,a,j,c]
@@ -38,6 +38,19 @@ PyTorch versions (`..._plain`: the same grouping, padded to slots, dense sums
 over the slot axes) only for tensors that lie on the CPU. Both kernels are
 memory-bound; see the note at the top of the source. Inference only: like
 the TPU kernels they have no backward of their own.
+
+The bucket kernel (K2) gives a warp a tile of one output row and gathers X
+from L2. The any-size kernel (K3) gives a block one output row and a slice
+of up to 32 channels: it streams each of the row's (Ke row, X row) pairs
+through shared memory (cp.async, two buffers), a thread per column holds
+the slice's channels in registers and reads each index and Ke value once
+per term, and the block adds `Kp * X` and writes the row contiguously — one
+launch after the (remembered) plan, no torch op after it. Where a row does
+not fit (`large_geometry`, the one place of that rule) the same kernel reads
+Ke and X from global memory instead. What is left between K3 and its bound:
+at C = 1 each block's serial walk over its graph-1 edges, a Ke row from
+DRAM per step; at C > 1 the X gathers from shared memory at unrelated banks
+and each X row crossing L2 once per graph-1 edge.
 """
 from __future__ import annotations
 
@@ -58,7 +71,15 @@ SOURCE = "fpmatch_tpu_torch/kernels/csrc/assoc_bucket.cu"
 # launches of each CUDA kernel, counted where its wrapper launches it
 LAUNCHES: Dict[str, int] = {"assoc_bucket": 0, "assoc_large": 0}
 
-DEFAULT_BLOCK_C = 8        # channels per block of the any-size kernel
+DEFAULT_BLOCK_C = 32       # channels per grid slice of the any-size kernel
+
+# the any-size kernel's shape rule (`large_geometry`): a thread holds at most
+# MAX_SLICE channels in registers, a block has at most LARGE_TILE threads,
+# and the two staged (Ke row, X row) buffers (or the epilogue's row) may take
+# LARGE_STAGE_BYTES of shared memory, so that two blocks share an SM
+MAX_SLICE = 32
+LARGE_TILE = 640
+LARGE_STAGE_BYTES = 112 * 1024
 
 
 class BucketPlan(NamedTuple):
@@ -157,6 +178,72 @@ def _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask):
         raise ValueError("all tensors must lie on one device")
 
 
+class LargeGeom(NamedTuple):
+    """Launch geometry of the any-size kernel, passed to it as ints in this
+    order (`LargeGeom` in csrc/assoc_bucket.cu)."""
+    B: int
+    N1: int
+    N2: int
+    C: int
+    E1: int
+    E2: int
+    cb: int          # channels per grid slice
+    chunks: int      # grid slices, ceil(C / cb)
+    nc: int          # channels a thread holds: the kernel's instantiation
+    threads: int     # per block: columns per tile
+    staged: int      # 1: (Ke row, X row) pairs through shared memory
+    xs: int          # elements per staged node
+    nw: int          # 32-bit words per staged node when padded (0: as it is)
+    ts: int          # floats per node of the epilogue's row
+    ke_bytes: int    # one staged Ke row, 16-byte padded
+    x_bytes: int     # one staged X row, 16-byte padded
+    smem: int        # dynamic shared memory of a block
+
+    @property
+    def path(self) -> str:
+        return "staged" if self.staged else "global"
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def large_geometry(B: int, N1: int, N2: int, C: int, E1: int, E2: int,
+                   itemsize: int, block_c: int = DEFAULT_BLOCK_C,
+                   x_aligned: bool = True) -> LargeGeom:
+    """The any-size kernel's shape rule, in one place.
+
+    A grid slice holds min(block_c, 32, C) channels (a thread keeps them in
+    registers). A block of up to LARGE_TILE threads owns one output row.
+    `staged`: the row fits one tile and two (Ke row, X row) buffers — the
+    whole X row, every channel — as well as the epilogue's row fit in
+    LARGE_STAGE_BYTES; the block then streams them through shared memory.
+    Otherwise (`global`) the threads read Ke and X from global memory / L2,
+    tile the columns and write from registers: every size runs. A staged
+    node whose values are an even number of 32-bit words (and X 4-byte
+    aligned) gets one word of padding, so a warp's gathers spread over the
+    banks."""
+    if block_c < 1:
+        raise ValueError("block_c must be >= 1")
+    cb = min(block_c, MAX_SLICE, max(C, 1))
+    chunks = -(-C // cb)
+    nc = 1 if cb == 1 else -(-cb // 4) * 4
+    threads = min(-(-N2 // 32) * 32, LARGE_TILE) if N2 > 0 else 32
+    node = C * itemsize
+    nw = node // 4 if node % 8 == 0 and x_aligned else 0
+    xs = (node + 4) // itemsize if nw else C
+    ts = cb + 1 if cb % 2 == 0 else cb
+    ke_bytes = _pad16(4 * E2)
+    x_bytes = _pad16(N2 * xs * itemsize)
+    smem = max(2 * (ke_bytes + x_bytes), 4 * N2 * ts)
+    staged = N2 <= LARGE_TILE and smem <= LARGE_STAGE_BYTES
+    if not staged:
+        ke_bytes = x_bytes = smem = nw = 0
+        xs = C
+    return LargeGeom(B, N1, N2, C, E1, E2, cb, chunks, nc, threads,
+                     int(staged), xs, nw, ts, ke_bytes, x_bytes, smem)
+
+
 # ------------------------------------------------------------ plain versions
 def _slots(order, ins, offs, n_edges: int):
     """A CSR grouping padded to max-degree slots: (in_slot, e_slot), both
@@ -225,7 +312,8 @@ def assoc_matvec_large_plain(X, Kp, Ke, src1, dst1, src2, dst2,
                              e2_mask=None, block_c: int = DEFAULT_BLOCK_C
                              ) -> torch.Tensor:
     """The plain PyTorch version of `assoc_matvec_large`: the edge terms one
-    channel chunk at a time, the Kp term added after them."""
+    channel slice of `block_c` at a time (the result does not depend on it),
+    the Kp term added after them in f32."""
     _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
     if block_c < 1:
         raise ValueError("block_c must be >= 1")
@@ -263,18 +351,22 @@ def _launch_bucket(X, Kp, Ke, plan: BucketPlan) -> torch.Tensor:
     return Y
 
 
-def _launch_large(X, Ke, plan: BucketPlan, block_c: int) -> torch.Tensor:
+def _launch_large(X, Kp, Ke, plan: BucketPlan, block_c: int
+                  ) -> torch.Tensor:
     B, n1, n2, C = X.shape
+    X, Kp, Ke = X.contiguous(), Kp.contiguous(), Ke.contiguous()
+    g = large_geometry(B, n1, n2, C, Ke.shape[1], Ke.shape[2],
+                       X.element_size(), block_c, X.data_ptr() % 4 == 0)
     lib = _build.load("assoc_bucket")
     fn = _fn(lib, "fpm_assoc_large_bf16" if X.dtype == torch.bfloat16
-             else "fpm_assoc_large_f32", 9, 7)
-    X, Ke = X.contiguous(), Ke.contiguous()
+             else "fpm_assoc_large_f32", 11, 1)      # the 11th: the geometry
+    geom = (ctypes.c_int * len(g))(*g)
     Y = torch.empty((B, n1, n2, C), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(X.data_ptr(), Ke.data_ptr(),
-                  *(t.data_ptr() for t in plan[2:]), Y.data_ptr(), B, n1, n2,
-                  C, Ke.shape[1], Ke.shape[2], block_c, stream)
+        code = fn(X.data_ptr(), Kp.data_ptr(), Ke.data_ptr(),
+                  *(t.data_ptr() for t in plan[2:]), Y.data_ptr(),
+                  ctypes.addressof(geom), len(g), stream)
     _build.check(lib, code, "assoc_large launch")
     LAUNCHES["assoc_large"] += 1
     return Y
@@ -314,17 +406,18 @@ def assoc_matvec_large(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
                        e1_mask: Optional[torch.Tensor] = None,
                        e2_mask: Optional[torch.Tensor] = None,
                        block_c: int = DEFAULT_BLOCK_C) -> torch.Tensor:
-    """The same product for pairs of any size: nothing is assumed to fit in
-    shared memory, the channels are processed `block_c` at a time (C need not
-    be a multiple), and `Kp * X` is added outside the kernel. Arguments and
-    result as `assoc_matvec_bucket`."""
+    """The same product for pairs of any size: nothing has to fit in shared
+    memory (`large_geometry` picks the kernel's path), a grid slice holds
+    min(`block_c`, 32) channels (C need not be a multiple), and `Kp * X` is
+    added inside the kernel, after the edge sum. Arguments and result as
+    `assoc_matvec_bucket`."""
     _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask)
     if block_c < 1:
         raise ValueError("block_c must be >= 1")
     if X.device.type == "cuda":
         plan = plan_bucket(src1, dst1, src2, dst2, X.shape[1], X.shape[2],
                            transpose, e1_mask, e2_mask)
-        return _launch_large(X, Ke, plan, block_c) + Kp[..., None] * X.float()
+        return _launch_large(X, Kp, Ke, plan, block_c)
     if X.device.type == "cpu":
         return assoc_matvec_large_plain(X, Kp, Ke, src1, dst1, src2, dst2,
                                         transpose, e1_mask, e2_mask, block_c)

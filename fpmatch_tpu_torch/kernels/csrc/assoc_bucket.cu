@@ -1,13 +1,13 @@
 // Batched association matvec for Hopper (sm_90a): the bucket-scale kernel
-// (a warp per row tile, channels in registers, Kp term fused) and the blocked
-// kernel for pairs of any size (gathers straight from global memory / L2, no
-// Kp).
+// (K2: a warp per row tile, channels in registers) and the kernel for pairs
+// of any size (K3: a block per output row, (Ke row, X row) pairs streamed
+// through shared memory). Both add the Kp term themselves.
 //
 // They replace the TPU Pallas kernels of fpmatch_tpu/kernels/assoc_pallas.py:
 // `_kernel` (reached through assoc_matvec_pallas) and `_kernel_large`
 // (reached through assoc_matvec_pallas_large). Same function, same contract:
 //
-//   Y[b,a,j,c] = Kp[b,a,j] * X[b,a,j,c]                      (bucket only)
+//   Y[b,a,j,c] = Kp[b,a,j] * X[b,a,j,c]
 //              + sum_{e1: out1(e1)=a} sum_{e2: out2(e2)=j}
 //                    Ke[b,e1,e2] * X[b, in1(e1), in2(e2), c]
 //
@@ -28,24 +28,49 @@
 // multiply by their Ke == 0.
 //
 // Bound: memory bytes (X + Kp + Ke + Y once; 2 flops per association edge and
-// channel is far below what those bytes allow). Design of the bucket kernel:
-// a warp owns (sample b, output row a, a tile of columns, a chunk of up to 32
-// channels). It stages the row's run of (e1, in1) in shared memory, 32
-// entries at a time (so any degree runs, with no block barrier). Its lanes
-// own cells: L = ceil(min(C, 32) / NC) lanes per cell, NC channels of the
-// cell in registers each, gathered straight from global memory / L2 (a batch
-// of X is a few MB) as 16-byte vectors where C and the alignment allow
-// (otherwise one thread holds all of the cell's channels: NC = 32, or 1 at
-// C = 1; a lane per channel was slower at C = 17). Each
-// Ke value is read once per term for all channels. `Kp * X` is added last
-// and the cell is written once. Shared memory does not depend on N2 or C, so
-// every width runs. The blocked kernel tiles the channels as well (grid: row
-// a, sample b, channel chunk) and stages only the row's edge ids, so nothing
-// has to fit anywhere. No cp.async / TMA / tensor cores.
+// channel is far below what those bytes allow).
+//
+// K2 (bucket scale). A warp owns (sample b, output row a, a tile of columns,
+// a chunk of up to 32 channels). It stages the row's run of (e1, in1) in
+// shared memory, 32 entries at a time (so any degree runs, with no block
+// barrier). Its lanes own cells: L = ceil(min(C, 32) / NC) lanes per cell, NC
+// channels of the cell in registers each, gathered straight from global
+// memory / L2 (a batch of X is a few MB) as 16-byte vectors where C and the
+// alignment allow (otherwise one thread holds all of the cell's channels:
+// NC = 32, or 1 at C = 1; a lane per channel was slower at C = 17). Each Ke
+// value is read once per term for all channels. `Kp * X` is added last and
+// the cell is written once. Shared memory does not depend on N2 or C, so
+// every width runs. No cp.async / TMA / tensor cores.
+//
+// K3 (any size; the layout of csrc/assoc_univ_v3.cu, batched). A block owns
+// (output row a, sample b, a slice of up to 32 channels) and walks the row's
+// graph-1 run in order. For each edge e1 it streams the contiguous Ke row
+// Ke[b, e1, :E2] and the X row X[b, in1(e1), :, :] into shared memory with
+// cp.async, double-buffered (the next pair loads while this one is summed),
+// so Ke crosses DRAM once and each X row comes from L2 (a sample's X is a few
+// MB); a staged node whose values are an even number of words is padded by
+// one word, so a warp's gathers spread over the banks. A thread owns output
+// column j with the slice's channels in registers and walks its graph-2 run
+// (order2 / ins2 from L1): per term one index pair and one Ke value from
+// shared memory for all channels. The epilogue puts the row's sums into
+// shared memory by column, adds `Kp * X` (f32, after the edge sum, as the JAX
+// wrapper does) and writes the row contiguously. Nothing has to fit: where
+// two stages and that row exceed the budget, or the row is wider than a
+// block, a second instantiation reads Ke and X from global memory / L2,
+// tiles the columns and writes from registers. The shape rule lives in
+// kernels/assoc_bucket.py::large_geometry, which fills `LargeGeom`. What is
+// left between K3 and its byte bound: at C = 1 each block's serial walk over
+// its graph-1 edges, a Ke row from DRAM per step; at C > 1 each term's C
+// words of X gathered from shared memory at unrelated banks (40 % of the
+// time at C = 17 by a diagnostic build), and each X row crossing L2 once per
+// graph-1 edge (B E1 N2 C values in all). No TMA / tensor cores.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstring>
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,8 +82,6 @@ using fpm_common::round_bf16;
 using fpm_common::store_channels;
 using fpm_common::to_f32;
 
-constexpr int kMaxThreads = 256;
-constexpr int kStage = 128;   // edge ids of one output row staged at a time
 constexpr int kWarps = 4;     // warps per block of the bucket kernel
 
 // One edge term, acc + ke x. f32 X: one fma. bf16 X: as the JAX op's
@@ -201,84 +224,294 @@ int launch_bucket(const void* X, const void* Kp, const void* Ke,
   return (int)cudaErrorInvalidValue;
 }
 
-// --------------------------------------------------------------- any size
+// ----------------------------------------------------------------- any size
+// The launch geometry of K3, computed by kernels/assoc_bucket.py::
+// large_geometry (the one place of the shape rule) and passed as kGeomInts
+// ints in this order; the magics are derived here.
+struct LargeGeom {
+  int B, N1, N2, C, E1, E2;
+  int cb;                        // channels per grid slice (<= 32)
+  int chunks;                    // grid slices: ceil(C / cb)
+  int nc;                        // channels a thread holds (instantiation)
+  int threads;                   // per block: columns per tile
+  int staged;                    // 1: stream through shared memory
+  int xs;                        // elements per staged node
+  int nw;                        // words per node when padded (0: as it is)
+  int ts;                        // floats per node of the epilogue's row
+  int ke_bytes, x_bytes;         // one staged Ke row / X row, 16-byte padded
+  int smem;                      // dynamic shared memory of a block
+  unsigned magic, magic_last, wmagic;   // ceil(2^32 / d) for d = cb, the
+                                        // last slice's width, nw
+};
+constexpr int kGeomInts = 17;
+static_assert(offsetof(LargeGeom, magic) == kGeomInts * sizeof(int),
+              "the ints large_geometry passes come first, in order");
+constexpr int kLargeTile = 640;       // most threads of a block
+constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
+
+__device__ __forceinline__ int div_by(int i, int d, unsigned magic) {
+  return d == 1 ? i : (int)__umulhi((unsigned)i, magic);
+}
+
+// Copy `bytes` (a multiple of 2) from global to shared memory with the
+// whole block: cp.async of 16 or 4 bytes where the source allows it, plain
+// loads and stores otherwise (both visible after the next barrier that
+// follows __pipeline_wait_prior).
+__device__ __forceinline__ void stage(unsigned char* dst,
+                                      const unsigned char* src, int bytes) {
+  const unsigned a = (unsigned)reinterpret_cast<unsigned long long>(src);
+  int done = 0;
+  if ((a & 15) == 0) {
+    const int n = bytes >> 4;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      __pipeline_memcpy_async(dst + 16 * i, src + 16 * i, 16);
+    done = n << 4;
+  }
+  if ((a & 3) == 0) {
+    const int n = (bytes - done) >> 2;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      __pipeline_memcpy_async(dst + done + 4 * i, src + done + 4 * i, 4);
+    done += n << 2;
+  }
+  const int n = (bytes - done) >> 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    reinterpret_cast<unsigned short*>(dst + done)[i] =
+        reinterpret_cast<const unsigned short*>(src + done)[i];
+}
+
+// X[b, in1, :, :] (N2 nodes of C values) into a staged row: as it is, or
+// word by word with one word of padding after each node (LargeGeom::nw).
 template <typename XT>
-__global__ void assoc_large_kernel(
+__device__ __forceinline__ void stage_x(unsigned char* dst, const XT* src,
+                                        const LargeGeom& g) {
+  if (g.nw == 0) {
+    stage(dst, reinterpret_cast<const unsigned char*>(src),
+          (int)((long long)g.N2 * g.C * sizeof(XT)));
+    return;
+  }
+  const int words = g.N2 * g.nw;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const int j = div_by(i, g.nw, g.wmagic);
+    __pipeline_memcpy_async(
+        dst + 4 * (i + j),
+        reinterpret_cast<const unsigned char*>(src) + 4 * i, 4);
+  }
+}
+
+// With one channel a cell's graph-2 run is read once per column tile: its
+// first eight entries (the Ke offset e2 and the X offset in2 * xs; 0 past
+// the run) stay in registers for every graph-1 edge of the row, so the
+// cached terms' shared-memory loads issue together instead of each waiting
+// for its index from L1 (kernel alone at B=2 / N=256 / E=1536 0.0226 ->
+// 0.0185 ms, at B=1 / N=600 / E=3840 0.0565 -> 0.0490 in bf16; H100,
+// scripts/time_assoc_large.py). With more channels the registers are worth
+// more as accumulators (caching there was slower) and the entries are read
+// from L1 per term.
+template <int NC>
+constexpr int kCacheOf = NC == 1 ? 8 : 0;
+template <int KC>
+using Cache = int[KC > 0 ? KC : 1];
+
+// The terms of one graph-1 edge for one cell: its graph-2 run (cnt entries,
+// the first KC of them in ce / cx, the rest read from L1 at p_lo), each Ke
+// value read once for all n channels; x_row is offset to the slice.
+template <typename XT, int NC, int KC>
+__device__ __forceinline__ void large_terms(
+    const float* ke_row, const XT* x_row, const Cache<KC>& ce,
+    const Cache<KC>& cx, int cnt, const int* __restrict__ ord2,
+    const int* __restrict__ in2, int p_lo, int xs, int n,
+    float (&acc)[NC]) {
+  static_assert(KC == 0 || NC == 1, "cached entries are for one channel");
+#pragma unroll
+  for (int q = 0; q < KC; ++q) {
+    // no branch: the cached terms' loads issue together (an entry past the
+    // run reads element 0 and the select drops it)
+    const float t = add_term<XT>(ke_for<XT>(ke_row[ce[q]]),
+                                 to_f32(x_row[cx[q]]), acc[0]);
+    acc[0] = q < cnt ? t : acc[0];
+  }
+  for (int p = p_lo + KC; p < p_lo + cnt; ++p) {
+    const float kv = ke_for<XT>(ke_row[__ldg(ord2 + p)]);
+    const XT* xp = x_row + (long long)__ldg(in2 + p) * xs;
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      if (k < n) acc[k] = add_term<XT>(kv, to_f32(xp[k]), acc[k]);
+  }
+}
+
+// Blocks per SM: up to 20 channels two blocks share an SM (48 registers, a
+// few spilled at 20): at B=1 / N=600 two rows of 608 threads, at B=2 /
+// N=256 all 512 blocks in one wave (kernel alone at C=17 0.215 -> 0.199 and
+// 0.0751 -> 0.0709 ms; H100, scripts/time_assoc_large.py). Above 20 the
+// accumulators need the registers.
+template <typename XT, int NC, bool kStage>
+__global__ void __launch_bounds__(kLargeTile, NC <= 20 ? 2 : 1)
+    assoc_large_kernel(
     const XT* __restrict__ X,        // (B, N1, N2, C)
+    const float* __restrict__ Kp,    // (B, N1, N2)
     const float* __restrict__ Ke,    // (B, E1, E2)
     const int* __restrict__ order1, const int* __restrict__ ins1,
     const int* __restrict__ offs1, const int* __restrict__ order2,
     const int* __restrict__ ins2, const int* __restrict__ offs2,
-    float* __restrict__ Y,           // (B, N1, N2, C), edge terms only
-    int N1, int N2, int C, int E1, int E2, int block_c) {
-  __shared__ int se1[kStage];
-  __shared__ int sin1[kStage];
+    float* __restrict__ Y,           // (B, N1, N2, C)
+    LargeGeom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int a = blockIdx.x;
   const int b = blockIdx.y;
-  const int c0 = blockIdx.z * block_c;
-  const int cb = min(block_c, C - c0);       // channels of this chunk
-  const long long row_elems = (long long)N2 * C;
-  const XT* Xb = X + (long long)b * N1 * row_elems;
-  const float* Keb = Ke + (long long)b * E1 * E2;
-  const int* ord1 = order1 + (long long)b * E1;
-  const int* in1 = ins1 + (long long)b * E1;
-  const int* ord2 = order2 + (long long)b * E2;
-  const int* in2 = ins2 + (long long)b * E2;
-  const int* of2 = offs2 + (long long)b * (N2 + 1);
-  const int lo1 = offs1[(long long)b * (N1 + 1) + a];
-  const int hi1 = offs1[(long long)b * (N1 + 1) + a + 1];
-  float* yrow = Y + ((long long)b * N1 + a) * row_elems;
+  const int c0 = blockIdx.z * g.cb;
+  const int n = min(g.cb, g.C - c0);         // channels of this slice
+  const long long row_elems = (long long)g.N2 * g.C;
+  const XT* Xb = X + (long long)b * g.N1 * row_elems;
+  const float* Keb = Ke + (long long)b * g.E1 * g.E2;
+  const int* ord1 = order1 + (long long)b * g.E1;
+  const int* in1 = ins1 + (long long)b * g.E1;
+  const int* ord2 = order2 + (long long)b * g.E2;
+  const int* in2 = ins2 + (long long)b * g.E2;
+  const int* of2 = offs2 + (long long)b * (g.N2 + 1);
+  const int lo = offs1[(long long)b * (g.N1 + 1) + a];
+  const int hi = g.E2 > 0 ? offs1[(long long)b * (g.N1 + 1) + a + 1] : lo;
+  const long long cell0 = ((long long)b * g.N1 + a) * g.N2;
+  const int buf = g.ke_bytes + g.x_bytes;
 
-  // tiles of the (column, channel-in-chunk) axis; every thread of the block
-  // takes part in each tile's barriers, whether it owns a cell or not
-  const int cells = N2 * cb;
-  for (int base = 0; base < cells; base += blockDim.x) {
-    const int flat = base + threadIdx.x;
-    const bool live = flat < cells;
-    const int j = live ? flat / cb : 0;
-    const int c = c0 + (live ? flat - j * cb : 0);
+  for (int t0 = 0; t0 < g.N2; t0 += blockDim.x) {
+    const int j = t0 + threadIdx.x;
+    const bool live = j < g.N2;
     const int p_lo = live ? of2[j] : 0;
-    const int p_hi = live ? of2[j + 1] : 0;
-    float acc = 0.0f;
-    for (int lo = lo1; lo < hi1; lo += kStage) {
-      const int nr = min(kStage, hi1 - lo);
-      __syncthreads();
-      for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-        se1[r] = ord1[lo + r];
-        sin1[r] = in1[lo + r];
-      }
-      __syncthreads();
-      for (int p = p_lo; p < p_hi; ++p) {
-        const float* kecol = Keb + ord2[p];
-        const XT* xcol = Xb + (long long)in2[p] * C + c;
-        for (int r = 0; r < nr; ++r)
-          acc = add_term<XT>(ke_for<XT>(kecol[(long long)se1[r] * E2]),
-                             to_f32(xcol[(long long)sin1[r] * row_elems]),
-                             acc);
+    const int cnt = live ? of2[j + 1] - p_lo : 0;
+    constexpr int KC = kCacheOf<NC>;
+    Cache<KC> ce, cx;
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      ce[q] = q < cnt ? __ldg(ord2 + p_lo + q) : 0;
+      cx[q] = q < cnt ? __ldg(in2 + p_lo + q) * g.xs : 0;
+    }
+    float acc[NC];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
+
+    auto load = [&](int k) {
+      unsigned char* s = smem + ((k - lo) & 1) * buf;
+      stage(s, reinterpret_cast<const unsigned char*>(
+                   Keb + (long long)ord1[k] * g.E2),
+            4 * g.E2);
+      stage_x(s + g.ke_bytes, Xb + (long long)in1[k] * row_elems, g);
+      __pipeline_commit();
+    };
+    if (kStage && lo < hi) load(lo);
+    for (int k = lo; k < hi; ++k) {
+      if constexpr (kStage) {
+        // two buffers: the next edge's pair loads while this one is summed
+        if (k + 1 < hi) {
+          load(k + 1);
+          __pipeline_wait_prior(1);
+        } else {
+          __pipeline_wait_prior(0);
+        }
+        __syncthreads();               // this pair has landed for everyone
+        const unsigned char* s = smem + ((k - lo) & 1) * buf;
+        large_terms<XT, NC, KC>(
+            reinterpret_cast<const float*>(s),
+            reinterpret_cast<const XT*>(s + g.ke_bytes) + c0, ce, cx, cnt,
+            ord2, in2, p_lo, g.xs, n, acc);
+        __syncthreads();               // read before the buffer is reused
+      } else {
+        large_terms<XT, NC, KC>(Keb + (long long)ord1[k] * g.E2,
+                                Xb + (long long)in1[k] * row_elems + c0, ce,
+                                cx, cnt, ord2, in2, p_lo, g.xs, n, acc);
       }
     }
-    if (live) yrow[(long long)j * C + c] = acc;
+    if constexpr (kStage) {
+      // one tile holds the whole row (the shape rule): the sums go to
+      // shared memory by column, then the block adds Kp X and writes the
+      // slice of the row contiguously
+      __syncthreads();
+      float* row = reinterpret_cast<float*>(smem);   // node stride g.ts
+      if (live) {
+        float* r = row + (long long)j * g.ts;
+#pragma unroll
+        for (int k = 0; k < NC; ++k)
+          if (k < n) r[k] = acc[k];
+      }
+      __syncthreads();
+      const unsigned magic = n == g.cb ? g.magic : g.magic_last;
+      const int cells = g.N2 * n;
+      for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+        const int col = div_by(i, n, magic);
+        const int k = i - col * n;
+        const long long y = (cell0 + col) * g.C + c0 + k;
+        Y[y] = __fadd_rn(row[col * g.ts + k],
+                         __fmul_rn(Kp[cell0 + col], to_f32(X[y])));
+      }
+    } else if (live) {
+      const long long y = (cell0 + j) * g.C + c0;
+      const float kp = Kp[cell0 + j];
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        if (k < n)
+          Y[y + k] = __fadd_rn(acc[k], __fmul_rn(kp, to_f32(X[y + k])));
+    }
   }
 }
 
-template <typename XT>
-int launch_large(const void* X, const void* Ke, const void* order1,
-                 const void* ins1, const void* offs1, const void* order2,
-                 const void* ins2, const void* offs2, void* Y, int B, int N1,
-                 int N2, int C, int E1, int E2, int block_c, void* stream) {
-  if (B <= 0 || N1 <= 0 || N2 <= 0 || C <= 0) return (int)cudaSuccess;
-  if (block_c < 1) return (int)cudaErrorInvalidValue;
-  const int chunks = (C + block_c - 1) / block_c;
-  if (B > 65535 || chunks > 65535) return (int)cudaErrorInvalidValue;
-  const long long cells = (long long)N2 * (block_c < C ? block_c : C);
-  int threads = (int)((cells + 31) / 32 * 32);
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  dim3 grid((unsigned)N1, (unsigned)B, (unsigned)chunks);
-  assoc_large_kernel<XT><<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const XT*)X, (const float*)Ke, (const int*)order1, (const int*)ins1,
-      (const int*)offs1, (const int*)order2, (const int*)ins2,
-      (const int*)offs2, (float*)Y, N1, N2, C, E1, E2, block_c);
+template <typename XT, int NC, bool kStage>
+int launch_large_nc(const void* X, const void* Kp, const void* Ke,
+                    const void* const* plan, void* Y, const LargeGeom& g,
+                    cudaStream_t stream) {
+  auto kern = assoc_large_kernel<XT, NC, kStage>;
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)g.N1, (unsigned)g.B, (unsigned)g.chunks);
+  kern<<<grid, g.threads, g.smem, stream>>>(
+      (const XT*)X, (const float*)Kp, (const float*)Ke, (const int*)plan[0],
+      (const int*)plan[1], (const int*)plan[2], (const int*)plan[3],
+      (const int*)plan[4], (const int*)plan[5], (float*)Y, g);
   return (int)cudaGetLastError();
+}
+
+unsigned magic_of(int d) {
+  return d > 1 ? (unsigned)((0x100000000ULL + d - 1) / d) : 0u;
+}
+
+template <typename XT>
+int launch_large(const void* X, const void* Kp, const void* Ke,
+                 const void* const* plan, void* Y, const int* geom,
+                 int n_geom, void* stream) {
+  if (n_geom != kGeomInts) return (int)cudaErrorInvalidValue;
+  LargeGeom g;
+  std::memcpy(&g, geom, kGeomInts * sizeof(int));
+  if (g.B <= 0 || g.N1 <= 0 || g.N2 <= 0 || g.C <= 0) return (int)cudaSuccess;
+  // what the kernel relies on; large_geometry never breaks it
+  const bool ok =
+      g.E1 >= 0 && g.E2 >= 0 && g.cb >= 1 && g.cb <= 32 &&
+      g.chunks == (g.C + g.cb - 1) / g.cb && g.chunks <= 65535 &&
+      g.B <= 65535 && g.nc >= g.cb && g.threads >= 32 &&
+      g.threads <= kLargeTile && g.threads % 32 == 0 && g.smem >= 0 &&
+      g.smem <= kMaxSmem &&
+      (!g.staged ||
+       (g.N2 <= g.threads && g.ts >= g.cb &&
+        4LL * g.N2 * g.ts <= g.smem && g.ke_bytes >= 4LL * g.E2 &&
+        g.x_bytes >= (long long)g.N2 * g.xs * (long long)sizeof(XT) &&
+        g.xs >= g.C && 2LL * (g.ke_bytes + g.x_bytes) <= g.smem &&
+        g.ke_bytes % 16 == 0 && g.x_bytes % 16 == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int last = g.C - (g.chunks - 1) * g.cb;
+  g.magic = magic_of(g.cb);
+  g.magic_last = magic_of(last);
+  g.wmagic = magic_of(g.nw);
+  cudaStream_t s = (cudaStream_t)stream;
+#define FPM_NC(NCV)                                                          \
+  if (g.nc == NCV)                                                           \
+    return g.staged ? launch_large_nc<XT, NCV, true>(X, Kp, Ke, plan, Y, g, \
+                                                     s)                      \
+                    : launch_large_nc<XT, NCV, false>(X, Kp, Ke, plan, Y, g, \
+                                                      s);
+  FPM_NC(1) FPM_NC(4) FPM_NC(8) FPM_NC(12) FPM_NC(16) FPM_NC(20) FPM_NC(24)
+  FPM_NC(28) FPM_NC(32)
+#undef FPM_NC
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -291,10 +524,10 @@ int launch_large(const void* X, const void* Ke, const void* order1,
       const void *ins2, const void *offs2, void *Y, int B, int N1, int N2,    \
       int C, int E1, int E2, int nc, int vec, void *stream
 #define FPM_LARGE_ARGS                                                        \
-  const void *X, const void *Ke, const void *order1, const void *ins1,        \
-      const void *offs1, const void *order2, const void *ins2,                \
-      const void *offs2, void *Y, int B, int N1, int N2, int C, int E1,       \
-      int E2, int block_c, void *stream
+  const void *X, const void *Kp, const void *Ke, const void *order1,          \
+      const void *ins1, const void *offs1, const void *order2,                \
+      const void *ins2, const void *offs2, void *Y, const int *geom,          \
+      int n_geom, void *stream
 
 extern "C" int fpm_assoc_bucket_f32(FPM_BUCKET_ARGS) {
   return launch_bucket<float>(X, Kp, Ke, order1, ins1, offs1, order2, ins2,
@@ -309,12 +542,12 @@ extern "C" int fpm_assoc_bucket_bf16(FPM_BUCKET_ARGS) {
 }
 
 extern "C" int fpm_assoc_large_f32(FPM_LARGE_ARGS) {
-  return launch_large<float>(X, Ke, order1, ins1, offs1, order2, ins2, offs2,
-                             Y, B, N1, N2, C, E1, E2, block_c, stream);
+  const void* plan[6] = {order1, ins1, offs1, order2, ins2, offs2};
+  return launch_large<float>(X, Kp, Ke, plan, Y, geom, n_geom, stream);
 }
 
 extern "C" int fpm_assoc_large_bf16(FPM_LARGE_ARGS) {
-  return launch_large<__nv_bfloat16>(X, Ke, order1, ins1, offs1, order2, ins2,
-                                     offs2, Y, B, N1, N2, C, E1, E2, block_c,
+  const void* plan[6] = {order1, ins1, offs1, order2, ins2, offs2};
+  return launch_large<__nv_bfloat16>(X, Kp, Ke, plan, Y, geom, n_geom,
                                      stream);
 }

@@ -104,6 +104,91 @@ def test_large_plain_matches_pallas_large_interpret_and_xla(rng, transpose,
         np.testing.assert_allclose(other, got, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("block_c", [1, 8, 32, 33])
+def test_large_plain_channel_slices_match_pallas_large(rng, block_c):
+    """C = 33, wider than the 32 channels a thread of the CUDA kernel holds:
+    the plain any-size version gives the JAX kernel's result whatever the
+    channel slice (one channel, the old default 8, the new default 32 —
+    slices of 32 and 1 — and all 33 in one JAX block)."""
+    X, Kp, Ke, idx, _, _ = _rand_case(rng, 2, 16, 12, 64, 48, 33)
+    got = t2n(kb.assoc_matvec_large(tt(X), tt(Kp), tt(Ke),
+                                    *(tt(a) for a in idx), transpose=True,
+                                    block_c=block_c))
+    pallas = _jax_per_sample(
+        assoc_matvec_pallas_large, X, Kp, Ke, idx, transpose=True,
+        block_e1=32, block_e2=16, block_c=block_c, precision="highest",
+        interpret=True)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+# (B, N, E, C, itemsize) of every K3 case chip_smoke.py runs -> the path
+# and channel slices the launcher takes
+_PHASE3 = [
+    ((8, 64, 64, 1, 384, 384, 4), "staged", 1, 1),
+    ((8, 64, 64, 17, 384, 384, 4), "staged", 17, 1),
+    ((8, 64, 64, 17, 384, 384, 2), "staged", 17, 1),
+    ((2, 256, 256, 1, 1536, 1536, 4), "staged", 1, 1),
+    ((2, 256, 256, 17, 1536, 1536, 4), "staged", 17, 1),
+    ((2, 256, 256, 17, 1536, 1536, 2), "staged", 17, 1),
+    ((1, 600, 600, 17, 3840, 3840, 4), "staged", 17, 1),
+    ((1, 600, 600, 17, 3840, 3840, 2), "staged", 17, 1),
+    ((2, 256, 256, 33, 1536, 1536, 4), "staged", 32, 2),
+    ((2, 256, 256, 16, 1536, 1536, 4), "staged", 16, 1),
+    ((3, 64, 64, 5, 384, 384, 4), "staged", 5, 1),
+    ((1, 4, 4096, 17, 1, 24530, 4), "global", 17, 1),
+    ((1, 4, 4096, 17, 1, 24530, 2), "global", 17, 1),
+]
+
+
+@pytest.mark.parametrize("shape,path,cb,chunks", _PHASE3)
+def test_large_geometry_picks_the_path(shape, path, cb, chunks):
+    """The any-size kernel's shape rule (`large_geometry`) at the shapes the
+    card runs: rows that fit one block and two (Ke row, X row) buffers in
+    112 KB stream through shared memory — B=1 / N=600 / E=3840 at C=17 f32
+    just fits — and the 4096-column row reads from global memory over
+    column tiles."""
+    g = kb.large_geometry(*shape)
+    assert (g.path, g.cb, g.chunks) == (path, cb, chunks)
+    B, N1, N2, C, E1, E2, itemsize = shape
+    assert g.nc >= g.cb and (g.nc == 1 or g.nc % 4 == 0) and g.nc <= 32
+    assert g.threads % 32 == 0 and 32 <= g.threads <= kb.LARGE_TILE
+    assert g.cb * g.chunks >= C > g.cb * (g.chunks - 1)
+    if g.staged:
+        assert N2 <= g.threads
+        assert g.ke_bytes % 16 == 0 and g.ke_bytes >= 4 * E2
+        assert g.x_bytes % 16 == 0 and g.x_bytes >= N2 * g.xs * itemsize
+        assert 2 * (g.ke_bytes + g.x_bytes) <= g.smem <= kb.LARGE_STAGE_BYTES
+        assert 4 * N2 * g.ts <= g.smem and g.ts % 2 == 1 and g.ts >= g.cb
+    else:
+        assert N2 > kb.LARGE_TILE or g.smem == 0
+        assert -(-N2 // g.threads) > 1
+
+
+def test_large_geometry_pads_even_nodes_and_slices_channels():
+    """Staged nodes of an even number of 32-bit words get one word of
+    padding (not when X is only 2-byte aligned); block_c slices the channels
+    up to 32, the registers of a thread, and must be >= 1; a row that does
+    not fit two buffers in the budget reads from global memory."""
+    g = kb.large_geometry(2, 256, 256, 16, 1536, 1536, 4)
+    assert (g.nw, g.xs) == (16, 17)
+    g = kb.large_geometry(2, 256, 256, 4, 1536, 1536, 2)
+    assert (g.nw, g.xs) == (2, 6)
+    g = kb.large_geometry(2, 256, 256, 4, 1536, 1536, 2, x_aligned=False)
+    assert (g.nw, g.xs) == (0, 4)
+    for C, itemsize in ((17, 4), (1, 4), (17, 2), (33, 4), (5, 2)):
+        g = kb.large_geometry(2, 256, 256, C, 1536, 1536, itemsize)
+        assert (g.nw, g.xs) == (0, C)
+    assert [kb.large_geometry(1, 8, 8, 33, 8, 8, 4, bc)[6:8]
+            for bc in (1, 8, 32, 33, 64)] == [(1, 33), (8, 5), (32, 2),
+                                               (32, 2), (32, 2)]
+    with pytest.raises(ValueError):
+        kb.large_geometry(1, 8, 8, 3, 8, 8, 4, 0)
+    # E2 = 30000: one Ke row is 120 KB
+    assert kb.large_geometry(1, 64, 64, 1, 8, 30000, 4).path == "global"
+    # C = 32 at N = 600: 2 x (15 KB + 79 KB) is over the budget
+    assert kb.large_geometry(1, 600, 600, 32, 3840, 3840, 4).path == "global"
+
+
 @pytest.mark.parametrize("kernel", ["bucket", "large"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_padded_slots_are_inert(rng, kernel, masked):
@@ -325,10 +410,10 @@ def test_auto_dispatch_on_a_cuda_tensor(monkeypatch):
     assert t_assoc.CHUNKED_NNZ_THRESHOLD == 1_000_000
 
 
-def _card_case(rng, kernel):
+def _card_case(rng, kernel, n1=64, n2=64, c=17, block_c=None):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel has no interpret mode")
-    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 3, 64, 64, 384, 384, 17,
+    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 3, n1, n2, 384, 384, c,
                                         [300, 384, 0], [384, 200, 50])
     args = [tt(a).cuda() for a in (X, Kp, Ke, *idx)]
     kw = dict(transpose=True, e1_mask=tt(m1).cuda(), e2_mask=tt(m2).cuda())
@@ -337,6 +422,8 @@ def _card_case(rng, kernel):
                          kb.assoc_matvec_bucket_plain),
         "assoc_large": (kb.assoc_matvec_large, kb.assoc_matvec_large_plain),
     }[kernel]
+    if block_c is not None:
+        kw["block_c"] = block_c
     before = kb.LAUNCHES[kernel]
     got = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -356,3 +443,16 @@ def test_bucket_cuda_kernel_matches_plain_on_the_card(rng):
 @pytest.mark.gpu
 def test_large_cuda_kernel_matches_plain_on_the_card(rng):
     _card_case(rng, "assoc_large")
+
+
+@pytest.mark.gpu
+def test_large_cuda_kernel_channel_slices_on_the_card(rng):
+    """C = 33: slices of 32 and 1 channels, and of 8 (five slices)."""
+    for block_c in (32, 8):
+        _card_case(rng, "assoc_large", c=33, block_c=block_c)
+
+
+@pytest.mark.gpu
+def test_large_cuda_kernel_wide_row_on_the_card(rng):
+    """A row of 4096 columns: global memory over column tiles."""
+    _card_case(rng, "assoc_large", n1=4, n2=4096, c=17)
