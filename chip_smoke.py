@@ -53,19 +53,41 @@ Phases (each prints its own lines; any failure exits non-zero):
               each held against the plain version and checked bit-identical
               over two calls, no assoc_bucket / assoc_large launched; its
               times are K4's in the kernels line
+ 11. detect   the trained pore detector (net17nomax) on two generator
+              impressions and the eight PolyU fixture images: with TF32 off
+              the card's coordinates equal the port's CPU run and the map is
+              within 1e-5; the detections TF32 changes (moved by one
+              pixel, gained, lost); forward ms (CUDA
+              events), host NMS ms, candidates; Lemes / compact DPF host
+              seconds; the fixture F-score
+ 12. serve    bare images (no keypoint files) through cli.match's read_pair
+              + match_arrays: 2 UNIV requests with the DPF detector, 2
+              bucket requests with the CNN, wall time split into detection
+              and matching; then cli.match.main itself on one pair
+ 13. hungarian --discretize hungarian: 2 UNIV and 2 bucket requests (both
+              passes on the route: 6 launches per request), each match a
+              cell of the LAPJV mask, the parts timed (first pass, host
+              LAPJV, masked second pass); one request of each route
+              against the CPU
+ 14. evaluate evaluate_loader with discretize="hungarian" over the 70-pair
+              split, one batch against the CPU run
 
-Weights are initialised from a seed, images and keypoints are made from a
-seed; nothing is read from disk but the package itself and what the script
-wrote. The second-to-last lines carry the per-kernel JSON and the card; the
-last line is {"ok": true, "device": {...}}.
+Weights are initialised from a seed (the detector's are the trained ones of
+results/poredet/net17nomax.npz), images and keypoints are made from a seed;
+nothing else is read from disk but the package itself, the PolyU fixture
+images under tests/fixtures and what the script wrote. The lines before the
+last carry the per-kernel JSON, the bare-image / Hungarian JSON and the
+card; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,12 +97,18 @@ if not torch.cuda.is_available():
           "needs an NVIDIA GPU", file=sys.stderr)
     sys.exit(1)
 
+from fpmatch_tpu_torch import native
 from fpmatch_tpu_torch.cli import evaluate as cli_evaluate
+from fpmatch_tpu_torch.cli import match as cli_match
 from fpmatch_tpu_torch.cli import model_config_from_args
-from fpmatch_tpu_torch.cli.match import build_parser, match_arrays
+from fpmatch_tpu_torch.cli.match import (build_parser, build_request,
+                                         make_detector, match_arrays,
+                                         read_pair)
+from fpmatch_tpu_torch.core.config import default_stages
 from fpmatch_tpu_torch.core.build_graphs import build_edges
 from fpmatch_tpu_torch.data.benchmark import make_benchmark
-from fpmatch_tpu_torch.data.generator import generate_synthetic_dataset
+from fpmatch_tpu_torch.data.generator import (generate_synthetic_dataset,
+                                              render_impression)
 from fpmatch_tpu_torch.data.pipeline import DataLoader, PairDataset
 from fpmatch_tpu_torch.kernels import _build
 from fpmatch_tpu_torch.kernels import assoc_bucket as k23
@@ -90,10 +118,19 @@ from fpmatch_tpu_torch.kernels import inoculate as k5
 from fpmatch_tpu_torch.models.ngm import build_model
 from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_matvec,
                                          assoc_matvec_chunked)
+from fpmatch_tpu_torch.ops.hungarian import hungarian_host
+from fpmatch_tpu_torch.poredet.dpf import detect_pores_dpf, detect_pores_lemes
+from fpmatch_tpu_torch.poredet.inference import (candidates,
+                                                 detect_pores_in_image)
+from fpmatch_tpu_torch.poredet.train import load_detector, validate_full_images
 from fpmatch_tpu_torch.scripts import tune_univ
+from fpmatch_tpu_torch.train.step import make_eval_step, make_eval_step_masked
 
 SEED = 0
 DEV = torch.device("cuda")
+ROOT = Path(__file__).resolve().parent
+DETECTOR = ROOT / "results" / "poredet" / "net17nomax.npz"
+FIXTURE = ROOT / "tests" / "fixtures" / "PolyU-mini" / "DBII" / "test"
 # published peaks of one H100 SXM (dense): HBM bytes/s, f32 FLOP/s outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1109,9 +1146,10 @@ class FirstFetch:
             yield batch
 
 
-def run_evaluate(tag, model, loader, n_pairs, kernel):
+def run_evaluate(tag, model, loader, n_pairs, kernel, discretize="greedy"):
     """Drive cli.evaluate.evaluate_loader over the whole loader; `kernel`
-    is the one the aggregations must go through, 3 launches per batch."""
+    is the one the aggregations must go through, 3 launches per forward
+    (two forwards per batch with `discretize="hungarian"`)."""
     seen = []
     loader = FirstFetch(loader)
 
@@ -1122,7 +1160,8 @@ def run_evaluate(tag, model, loader, n_pairs, kernel):
     reset_counts()
     torch.cuda.synchronize()
     t = time.time()
-    res = cli_evaluate.evaluate_loader(model, loader, on_batch=on_batch)
+    res = cli_evaluate.evaluate_loader(model, loader, on_batch=on_batch,
+                                       discretize=discretize)
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_counts()
@@ -1149,10 +1188,10 @@ def run_evaluate(tag, model, loader, n_pairs, kernel):
     say(f"[{tag}] report (random weights, says nothing about accuracy): "
         f"{json.dumps({k: round(v, 5) for k, v in res['report'].items()})}")
     want = {k: 0 for k in launches}
-    want[kernel] = 3 * n_batches
+    want[kernel] = 3 * n_batches * (2 if discretize == "hungarian" else 1)
     if launches != want:
-        fail(f"{tag}: expected {want}: {kernel} once per GNN layer per batch "
-             f"and no other kernel")
+        fail(f"{tag}: expected {want}: {kernel} once per GNN layer per "
+             f"forward and no other kernel")
     return launches, res, wall
 
 
@@ -1270,6 +1309,439 @@ def phase_tune():
     return launches, rows
 
 
+# ---------------------------------------------------------------- 11 detect
+def host_ms(fn, reps=10):
+    """Median host-clock time of one call of a host function, in ms."""
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def detect_images():
+    """Two 480x400 impressions of one finger from the port's generator, then
+    the eight PolyU fixture test images (96x96) with their .tsv pores."""
+    import cv2
+
+    out = [(f"impression 3/{s}", render_impression(3, s)[0], None)
+           for s in (1, 2)]
+    for png in sorted(FIXTURE.glob("*.png")):
+        gt = np.loadtxt(png.with_suffix(".tsv"), skiprows=1, usecols=(1, 2),
+                        ndmin=2).astype(np.float32)
+        out.append((png.name, cv2.imread(str(png), cv2.IMREAD_GRAYSCALE), gt))
+    if len(out) != 10:
+        fail(f"detect: {len(out) - 2} fixture images, expected 8")
+    return out
+
+
+def coord_set(c):
+    return {tuple(r) for r in np.asarray(c).tolist()}
+
+
+def split_changes(got, want):
+    """The symmetric difference of two detections split into pores that
+    moved by one pixel (a pore of `got` paired one to one with a pore of
+    `want` at Chebyshev distance 1) and pores gained or lost."""
+    gained = sorted(coord_set(got) - coord_set(want))
+    lost = coord_set(want) - coord_set(got)
+    moved = 0
+    for x, y in gained:
+        near = next((p for p in sorted(lost)
+                     if max(abs(p[0] - x), abs(p[1] - y)) <= 1), None)
+        if near is not None:
+            lost.discard(near)
+            moved += 1
+    return {"moved_1px": moved, "gained": len(gained) - moved,
+            "lost": len(lost)}
+
+
+def phase_native():
+    """The host-native library (g++ at first use, keyed by the host CPU):
+    build / load time, then a batched OpenMP LAPJV solve in this process,
+    where torch has run its threaded ops, against scipy's optimum."""
+    from scipy.optimize import linear_sum_assignment
+
+    path = native.library_path()
+    built = not path.exists()
+    t = time.time()
+    native.get_lib()
+    say(f"[11 detect] native library {path.name}: "
+        f"{'built' if built else 'found'} and loaded in "
+        f"{time.time() - t:.2f} s; torch threads {torch.get_num_threads()}")
+    rng = np.random.default_rng(SEED)
+    s = rng.normal(size=(32, 64, 64)).astype(np.float32)
+    n = np.full(32, 64)
+    out = native.lap_maximize_batch(s, n, n)
+    for b in range(32):
+        r, c = linear_sum_assignment(-s[b])
+        if abs(float((out[b] * s[b]).sum()) - float(s[b][r, c].sum())) \
+                > 1e-4 * 64:
+            fail(f"native LAPJV: block {b} is not optimal")
+    say(f"[11 detect] batched LAPJV (32 x 64 x 64, OpenMP) optimal on every "
+        f"block; {host_ms(lambda: native.lap_maximize_batch(s, n, n), 5):.2f}"
+        f" ms per batch")
+
+
+def phase_detect():
+    """The trained CNN detector (net17nomax, 40 features, 8 layers) on the
+    card against the port's own CPU run of it: TF32 off, identical
+    coordinates and the map within 1e-5; TF32 on (torch's default), the
+    detections it changes. Forward ms per image by CUDA events, host NMS
+    ms, candidate cells; the two DPF detectors' host seconds; the fixture
+    F-score."""
+    images = detect_images()
+    t = time.time()
+    model = load_detector("net17nomax", DETECTOR, device="cuda")
+    cpu = load_detector("net17nomax", DETECTOR, device="cpu")
+    say(f"[11 detect] net17nomax with the trained weights of "
+        f"{DETECTOR.relative_to(ROOT)} on the card and the CPU in "
+        f"{time.time() - t:.1f} s; cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    reset_counts()
+    rows, changed, map_err = [], 0, 0.0
+    split = {"moved_1px": 0, "gained": 0, "lost": 0}
+    for name, img, _ in images:
+        want, wmap = detect_pores_in_image(cpu, img)
+        with tf32_off():
+            got, gmap = detect_pores_in_image(model, img)
+        err = float(np.abs(gmap - wmap).max())
+        map_err = max(map_err, err)
+        if not np.array_equal(got, want):
+            fail(f"detect {name}: TF32 off, the card's {len(got)} pores "
+                 f"differ from the CPU's {len(want)}")
+        if not err <= 1e-5:
+            fail(f"detect {name}: TF32 off, the map differs by {err:.3e}")
+        tf32, tmap = detect_pores_in_image(model, img)
+        n_changed = len(coord_set(tf32) ^ coord_set(want))
+        changed += n_changed
+        parts = split_changes(tf32, want)
+        for k in split:
+            split[k] += parts[k]
+        x = torch.from_numpy(img.astype(np.float32))[None, None].to(DEV)
+
+        def forward():
+            with torch.inference_mode():
+                model(x / 255.0)
+
+        coords, scores = candidates(wmap, 0.65)
+        row = {"image": name, "hw": list(img.shape), "map_hw": list(
+            wmap.shape), "pores": len(want), "candidates": len(coords),
+            "map_err_tf32_off": err,
+            "map_err_tf32_on": float(np.abs(tmap - wmap).max()),
+            "changed_tf32_on": n_changed, "tf32_split": parts,
+            "forward_ms": time_ms(forward, reps=20),
+            "nms_ms": host_ms(lambda: native.nms_fixed_boxes(
+                coords, scores, 17, 0.2), reps=20),
+            "detect_ms": host_ms(lambda: detect_pores_in_image(model, img),
+                                 reps=5)}
+        rows.append(row)
+        say(f"[11 detect] {json.dumps(row)}")
+    launches = read_counts()
+    if any(launches.values()):
+        fail(f"detect: the detector launched a kernel of the port: "
+             f"{launches}")
+    say(f"[11 detect] TF32 off: coordinates identical to the CPU run on "
+        f"all {len(rows)} images, map within {map_err:.3e}; TF32 on: "
+        f"{changed} detections changed (symmetric difference) of "
+        f"{sum(r['pores'] for r in rows)}: {json.dumps(split)} (a moved "
+        f"pore counts twice in the difference)")
+    imgs = [img for _, img, gt in images if gt is not None]
+    gts = [gt for *_, gt in images if gt is not None]
+    kw = dict(window=17, probability=0.65, nms_iou=0.2)
+    f_gpu = validate_full_images(model, imgs, gts, **kw)
+    f_cpu = validate_full_images(cpu, imgs, gts, **kw)
+    say(f"[11 detect] fixture F-score (8 images, prob 0.65, NMS 0.2): card "
+        f"{json.dumps(f_gpu)}; CPU {json.dumps(f_cpu)}")
+    if not f_gpu["f_score"] > 0:
+        fail("detect: F-score 0 on the fixture")
+    dpf_rows = []
+    for name, img, _ in images[:2]:
+        t = time.time()
+        lem = detect_pores_lemes(img)
+        first = time.time() - t
+        dpf_rows.append({
+            "image": name, "lemes_pores": len(lem),
+            "lemes_first_s": first,
+            "lemes_s": host_ms(lambda: detect_pores_lemes(img), 3) / 1e3,
+            "dpf_pores": len(detect_pores_dpf(img)),
+            "dpf_s": host_ms(lambda: detect_pores_dpf(img), 5) / 1e3})
+        if not len(lem):
+            fail(f"detect: Lemes DPF found no pore in {name}")
+        say(f"[11 detect] DPF (host): {json.dumps(dpf_rows[-1])}")
+    return rows, dpf_rows, changed
+
+
+# ---------------------------------------------------- 12 serve bare images
+def write_bare_pairs(tmp):
+    """PNG files of generator impressions, no keypoint files: a genuine pair
+    (finger 3, impressions 1 and 2) and an impostor pair (fingers 4, 5)."""
+    import cv2
+
+    path = {}
+    for f, s in ((3, 1), (3, 2), (4, 1), (5, 1)):
+        path[f, s] = f"{tmp}/f{f}_{s}.png"
+        cv2.imwrite(path[f, s], np.stack([render_impression(f, s)[0]] * 3,
+                                         -1))
+    return [("genuine", path[3, 1], path[3, 2]),
+            ("impostor", path[4, 1], path[5, 1])]
+
+
+def serve_bare(tag, model, pairs, flags, kernel):
+    """`cli.match` without keypoint files, as `main` runs it: `read_pair`
+    with the detector of `flags`, then `match_arrays`. The wall time split
+    into detection and matching; `kernel` 3 times per request."""
+    reset_counts()
+    walls = []
+    for kind, a, b in pairs:
+        args = build_parser().parse_args([a, b, *flags])
+        det = make_detector(args)
+        det_s = []
+
+        def timed(gray):
+            t = time.time()
+            coords = det(gray)
+            torch.cuda.synchronize()
+            det_s.append(time.time() - t)
+            return coords
+
+        t = time.time()
+        pair = read_pair(args, detector=timed)
+        read_s = time.time() - t
+        if isinstance(pair, dict):
+            fail(f"{tag} {kind}: {pair}")
+        (i1, P1), (i2, P2) = pair
+        torch.cuda.synchronize()
+        t = time.time()
+        result, out = match_arrays(model, i1, P1, i2, P2,
+                                   univ_kernel=args.univ_kernel,
+                                   return_outputs=True)
+        torch.cuda.synchronize()
+        match_s = time.time() - t
+        check_outputs(f"{tag} {kind}", result, out, len(P1), len(P2))
+        walls.append({"kind": kind, "detect_s": det_s,
+                      "read_s": read_s, "match_ms": match_s * 1e3})
+        say(f"[{tag}] {kind}: detection {[round(x, 3) for x in det_s]} s "
+            f"(read_pair {read_s:.3f} s), matching {match_s * 1e3:.1f} ms  "
+            f"{json.dumps({k: result[k] for k in ('score', 'k_pred', 'n_kpts', 'n_matched')})}")
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want[kernel] = 3 * len(pairs)
+    say(f"[{tag}] kernel launches: {launches}")
+    if launches != want:
+        fail(f"{tag}: expected {want}")
+    return walls, launches
+
+
+def phase_serve_bare(tmp):
+    """Bare-image requests: two UNIV requests with the Lemes DPF detector
+    (the CLI's default), two bucket requests with the trained CNN; then the
+    entry point itself, `cli.match.main`, on the first pair."""
+    pairs = write_bare_pairs(tmp)
+    ucfg = cli_config(600, 3840, 600)
+    umodel = build_model(ucfg, device="cuda", seed=SEED)
+    uflags = ["--n-max", "600", "--e-max", "3840", "--univ", "600"]
+    univ, _ = serve_bare("12 serve bare univ dpf", umodel, pairs, uflags,
+                         "assoc_univ_v3")
+    bflags = ["--detector", "cnn", "--detector-checkpoint", str(DETECTOR)]
+    bmodel = build_model(cli_config(64, 384, 600), device="cuda", seed=SEED)
+    bucket, _ = serve_bare("12 serve bare bucket cnn", bmodel, pairs, bflags,
+                           "assoc_bucket")
+    # the CLI entry point, weights from seed 0 as above: the same verdict
+    argv = [pairs[0][1], pairs[0][2], *uflags, "--checkpoint-dir",
+            f"{tmp}/no_checkpoint"]
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_match.main(argv)
+    wall = time.time() - t
+    got = json.loads(buf.getvalue().strip().splitlines()[-1])
+    args = build_parser().parse_args(argv)
+    (i1, P1), (i2, P2) = read_pair(args)
+    want = match_arrays(umodel, i1, P1, i2, P2)
+    say(f"[12 serve bare] cli.match.main (dpf, UNIV, model built inside): "
+        f"rc {rc}, {wall:.1f} s; {json.dumps(got)[:300]}")
+    if rc != 0 or got["n_kpts"] != want["n_kpts"] or \
+            got["n_matched"] != want["n_matched"] or \
+            abs(got["score"] - want["score"]) > 1e-4:
+        fail(f"cli.match.main gave {got}, the function path {want}")
+    del umodel, bmodel
+    torch.cuda.empty_cache()
+    return {"univ_dpf": univ, "bucket_cnn": bucket}
+
+
+# ------------------------------------------------------------ 13 hungarian
+def hungarian_pieces(model, req, univ_kernel=None):
+    """One request's --discretize hungarian in its parts: the first forward
+    (to ds_mat on the host), the host LAPJV, the masked second pass.
+    Returns (mask, second-pass outputs, seconds of each part)."""
+    img1, P1, img2, P2 = req
+    batch, plan = build_request(img1, P1, img2, P2, model.cfg, univ_kernel)
+    batch = batch.to(next(model.parameters()).device)
+    sync = torch.cuda.synchronize if batch.points.is_cuda else (lambda: 0)
+    sync()
+    t0 = time.time()
+    ds = model(batch, univ_plan=plan)["ds_mat"].cpu().numpy()
+    t1 = time.time()
+    n1, n2 = batch.n_nodes[:, 0].cpu(), batch.n_nodes[:, 1].cpu()
+    mask = hungarian_host(ds, n1, n2)
+    t2 = time.time()
+    _, out = make_eval_step_masked(model, default_stages()[-1],
+                                   univ_plan=plan)(
+        batch, torch.from_numpy(mask).to(batch.points.device))
+    sync()
+    t3 = time.time()
+    lap_ms = host_ms(lambda: hungarian_host(ds, n1, n2), reps=5)
+    return mask, out, {"first_ms": (t1 - t0) * 1e3, "lapjv_ms": lap_ms,
+                       "second_ms": (t3 - t2) * 1e3, "n": list(ds.shape)}
+
+
+def serve_hungarian(tag, model, requests, kernel):
+    """Requests through `match_arrays(discretize="hungarian")`: `kernel` 6
+    times per request (both passes); then each one again in its parts,
+    every match inside the LAPJV mask, the entry point's matches equal to
+    the parts'."""
+    reset_counts()
+    results = []
+    for kind, req in requests:
+        torch.cuda.synchronize()
+        t = time.time()
+        res, out = match_arrays(model, *req, discretize="hungarian",
+                                return_outputs=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        check_outputs(f"{tag} {kind}", res, out, len(req[1]), len(req[3]))
+        results.append((kind, req, res, out, wall))
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want[kernel] = 6 * len(requests)
+    say(f"[{tag}] kernel launches: {launches} (expected {want[kernel]} of "
+        f"{kernel}: 3 per forward, two forwards per request)")
+    if launches != want:
+        fail(f"{tag}: the Hungarian second pass left the route: {launches}")
+    rows = []
+    for kind, req, res, out, wall in results:
+        mask, out2, parts = hungarian_pieces(
+            model, req, True if kernel == "assoc_univ_v3" else None)
+        perm = out["perm_mat"].cpu().numpy()
+        if (perm > mask).any():
+            fail(f"{tag} {kind}: a match outside the LAPJV mask")
+        if not np.array_equal(perm, out2["perm_mat"].cpu().numpy()):
+            fail(f"{tag} {kind}: the entry point and its parts disagree")
+        rows.append({"kind": kind, "wall_ms": wall * 1e3, **parts,
+                     "n_matched": res["n_matched"], "k_pred": res["k_pred"],
+                     "mask_size": int(mask.sum())})
+        say(f"[{tag}] {kind}: {json.dumps(rows[-1])}")
+    restore_counts(launches)        # the parts' launches do not count
+    return rows, results
+
+
+def phase_hungarian():
+    """Two UNIV and two bucket requests with --discretize hungarian; one
+    request of each route against the port's own CPU run, TF32 off."""
+    ucfg = cli_config(600, 3840, 600)
+    model = build_model(ucfg, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    ureq = [("genuine", make_request(rng, "genuine", 540, 600)),
+            ("impostor", make_request(rng, "impostor", 500, 600))]
+    urows, _ = serve_hungarian("13 hungarian univ", model, ureq,
+                               "assoc_univ_v3")
+    hungarian_vs_cpu("13 hungarian univ", model, ucfg, ureq[0][1], True)
+    del model
+    torch.cuda.empty_cache()
+    bcfg = cli_config(64, 384, 600)
+    bmodel = build_model(bcfg, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 4)
+    breq = [(k, make_request(rng, k, 40, 60)) for k in ("genuine",
+                                                         "ragged")]
+    brows, _ = serve_hungarian("13 hungarian bucket", bmodel, breq,
+                               "assoc_bucket")
+    hungarian_vs_cpu("13 hungarian bucket", bmodel, bcfg, breq[0][1], None)
+    return urows, brows
+
+
+def hungarian_vs_cpu(tag, model, cfg, req, univ):
+    """One `match_arrays(discretize="hungarian")` request on the card with
+    TF32 off against the port's own CPU run: LAPJV mask and `perm_mat`
+    identical, `cls_prob` and `k_prob` within 1e-3. Its launches do not
+    count."""
+    saved = read_counts()
+    with tf32_off():
+        mask_g, _, _ = hungarian_pieces(model, req, univ)
+        res_g, out_g = match_arrays(model, *req, discretize="hungarian",
+                                    return_outputs=True)
+        torch.cuda.synchronize()
+    t = time.time()
+    cpu = cpu_copy(model, cfg)
+    mask_c, _, _ = hungarian_pieces(cpu, req, univ)
+    res_c, out_c = match_arrays(cpu, *req, discretize="hungarian",
+                                return_outputs=True)
+    say(f"[{tag}] CPU run of one request (plain kernel version, two "
+        f"forwards + LAPJV, and its first pass again): "
+        f"{time.time() - t:.1f} s")
+    restore_counts(saved)
+    rows_same = float((mask_g == mask_c).all(axis=2).mean())
+    errs = {k: float((out_g[k].cpu() - out_c[k]).abs().max())
+            for k in ("cls_prob", "k_prob", "ds_mat")}
+    say(f"[{tag}] gpu vs cpu (TF32 off): LAPJV mask rows identical "
+        f"{rows_same:.4f}, n_matched {res_g['n_matched']} / "
+        f"{res_c['n_matched']}, {json.dumps(errs)}")
+    if rows_same != 1.0 or not torch.equal(out_g["perm_mat"].cpu(),
+                                           out_c["perm_mat"]):
+        fail(f"{tag}: the card's mask or matches differ from the CPU run's")
+    if res_g["matches"] != res_c["matches"] or max(
+            errs["cls_prob"], errs["k_prob"]) > 1e-3:
+        fail(f"{tag}: the card's result differs from the CPU run's")
+
+
+def phase_evaluate_hungarian(cfg, pd):
+    """evaluate_loader with discretize="hungarian" over the 70-pair split
+    (B=8, n_max=64; thread workers): one score per pair, assoc_bucket 6
+    times per batch; one batch against the port's CPU run, TF32 off."""
+    model = build_model(cfg, device="cuda", seed=SEED)
+    loader = DataLoader(pd, cfg, drop_last=False, device=DEV,
+                        device_prefetch=True, num_workers=4,
+                        use_processes=False)
+    try:
+        launches, res, wall = run_evaluate("14 evaluate hungarian", model,
+                                           loader, len(pd), "assoc_bucket",
+                                           discretize="hungarian")
+    finally:
+        loader.close()
+    first = next(iter(DataLoader(pd, cfg, drop_last=False, device=DEV,
+                                 num_workers=1, use_processes=False)))
+    saved = read_counts()
+    stage = default_stages()[-1]
+
+    def two_passes(net, batch):
+        _, out = make_eval_step(net, stage)(batch)
+        mask = hungarian_host(out["ds_mat"], batch.n_nodes[:, 0],
+                              batch.n_nodes[:, 1])
+        dev = batch.points.device
+        return mask, make_eval_step_masked(net, stage)(
+            batch, torch.from_numpy(mask).to(dev))[1]
+
+    with tf32_off():
+        mask_g, out_g = two_passes(model, first)
+        torch.cuda.synchronize()
+    mask_c, out_c = two_passes(cpu_copy(model, cfg), first.to("cpu"))
+    restore_counts(saved)
+    rows_same = float((mask_g == mask_c).all(axis=2).mean())
+    perm_same = torch.equal(out_g["perm_mat"].cpu(), out_c["perm_mat"])
+    err = float((out_g["cls_prob"].cpu() - out_c["cls_prob"]).abs().max())
+    say(f"[14 evaluate hungarian] one batch gpu vs cpu (TF32 off): LAPJV "
+        f"mask rows identical {rows_same:.4f}, perm_mat identical "
+        f"{perm_same}, cls_prob within {err:.3e}")
+    if rows_same != 1.0 or not perm_same or err > 1e-3:
+        fail("14 evaluate hungarian: the card's batch differs from the CPU "
+             "run's")
+    if (out_g["perm_mat"].cpu().numpy() > mask_g).any():
+        fail("14 evaluate hungarian: a match outside the LAPJV mask")
+    return launches, res, wall
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -1337,7 +1809,12 @@ def main():
         say(f"[9 evaluate large] synthetic test split (2 fingers x 2 x 2, "
             f"320 pores) written in {secs:.1f} s")
         launches3 = phase_evaluate_large(f"{tmp}/large", f"{tmp}/index")
-    launches4, rows10 = phase_tune()
+        launches4, rows10 = phase_tune()
+        phase_native()
+        det_rows, dpf_rows, tf32_changed = phase_detect()
+        bare = phase_serve_bare(tmp)
+        hung_univ, hung_bucket = phase_hungarian()
+        launches14, _, wall14 = phase_evaluate_hungarian(ecfg, pd)
     # the sweep times K4's (32, 128) f32 row; phase 3 the rest of that row
     main4 = next(r for r in rows4 if "bound_ms" in r)
     main4.update(next({k: r[k] for k in ("ms", "kernel_ms")}
@@ -1396,6 +1873,13 @@ def main():
                            "kernel_ms", "edges_per_s", "err_vs_plain")}
         for r in rows10]
     say(json.dumps(kernels))
+    # the slice of bare-image serving and Hungarian discretization: host
+    # work around the kernels above (no kernel of its own)
+    say(json.dumps({"bare_image_serving": {
+        "detect": det_rows, "dpf": dpf_rows,
+        "tf32_changed_detections": tf32_changed, "serve": bare,
+        "hungarian_univ": hung_univ, "hungarian_bucket": hung_bucket,
+        "evaluate_hungarian": {"launches": launches14, "wall_s": wall14}}}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

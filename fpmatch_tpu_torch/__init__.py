@@ -7,9 +7,10 @@ its own copies of the host-side code it needs. Modules sit at the same paths
 as their JAX counterparts:
 
   core/     typed configs, host-side graph construction
+  native/   host C++ (LAPJV, fixed-box NMS) built with g++ at first use
   ops/      batch-native graph-matching math in plain PyTorch (Sinkhorn,
             soft top-k, feature alignment, spline conv, factorized
-            association-graph matvec)
+            association-graph matvec), the host Hungarian solve
   kernels/  hand-written CUDA C++ kernels (sources under kernels/csrc/, built
             with nvcc for sm_90a at first use) with a plain PyTorch version
             beside each
@@ -20,10 +21,12 @@ as their JAX counterparts:
   evaluation/  matching and verification metrics (ROC / EER / FAR / FRR)
   train/    the eval step, the permutation loss, checkpoint files
   utils/    match drawings
+  poredet/  the pore detector: patch-CNN family, full-image inference, DPF
   cli/      entry points (single-pair serving: `cli.match`; batched
-            verification evaluation: `cli.evaluate`)
+            verification evaluation: `cli.evaluate`; pore detection over
+            an image tree: `cli.detect_pores`)
   scripts/  the block-size sweep of the blocked UNIV kernel (`tune_univ`)
-  convert   Flax variable tree (as numpy) -> state_dict
+  convert   Flax variable tree (as numpy) -> state_dict (matcher, detector)
 
 Where the JAX package lifts single-pair functions with vmap, this package is
 batch-native: functions take (B, ...) tensors and per-sample counts. Entry

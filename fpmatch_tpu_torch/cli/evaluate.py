@@ -10,6 +10,9 @@ flags and artifacts as the JAX package's `cli/evaluate.py`, plus `--device`
 (default `cuda`; `cuda` without a GPU is an error, never a silent CPU run)
 and `--seed`. On a CUDA device the three association-GNN aggregations of
 every batch run through the CUDA kernels of `kernels/assoc_bucket`.
+`--discretize hungarian` adds, per batch, the host LAPJV solve of the first
+forward's `ds_mat` (`ops.hungarian`) and a second forward through
+`train.step.make_eval_step_masked`; the scores are the second forward's.
 
 The work is split so that a script can enter below the files:
 `evaluate_loader` takes a model and a loader and returns labels, scores and
@@ -73,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["greedy", "hungarian"],
                     help="match discretization: 'greedy' ranks the greedy "
                          "fill by the soft-top-k map directly (device-only, "
-                         "the default); 'hungarian' is not ported yet")
+                         "the default); 'hungarian' reproduces the "
+                         "reference's full discretization (host LAPJV "
+                         "between two forwards per batch)")
     ap.add_argument("--thread-workers", action="store_true",
                     help="thread loader workers instead of spawn processes")
     ap.add_argument("--node-taps", default="layer3",
@@ -94,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def evaluate_loader(model, loader, *, score: str = "fused", log=None,
-                    on_batch=None) -> dict:
+                    on_batch=None, discretize: str = "greedy") -> dict:
     """Run every batch of `loader` through `model` and score the pairs.
 
     :param model: an NGMNet; batches are moved to its device if the loader
@@ -102,7 +107,11 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
     :param loader: yields PairBatches in pair order (sequential, last batch
         may be short)
     :param on_batch: optional `on_batch(index, batch, outputs)`, called with
-        the device batch and the eval step's outputs
+        the device batch and the eval step's outputs (the masked step's with
+        "hungarian")
+    :param discretize: "greedy", or "hungarian": per batch the host LAPJV on
+        the first forward's `ds_mat`, then the masked second forward, whose
+        scores and metrics are kept
     :return: dict with `labels`, `scores`, `cls_scores`, `k_probs` (numpy,
         one entry per pair), `report` (verification_metrics of the chosen
         score), `metrics` (mean of the step metrics over batches) and
@@ -113,11 +122,18 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
 
     from ..core.config import default_stages
     from ..evaluation.metrics import verification_metrics
-    from ..train.step import make_eval_step
+    from ..ops.hungarian import hungarian
+    from ..train.step import make_eval_step, make_eval_step_masked
 
+    if discretize not in ("greedy", "hungarian"):
+        raise ValueError(f"discretize must be greedy or hungarian, not "
+                         f"{discretize!r}")
     log = log or (lambda msg: None)
     dev = next(model.parameters()).device
-    eval_step = make_eval_step(model, default_stages()[-1])
+    stage = default_stages()[-1]
+    eval_step = make_eval_step(model, stage)
+    masked_step = (make_eval_step_masked(model, stage)
+                   if discretize == "hungarian" else None)
     labels, cls_scores, k_probs, batch_seconds = [], [], [], []
     sums: dict = {}
     n_batches = len(loader)
@@ -131,6 +147,10 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
                 or batch.images.device != dev:
             batch = batch.to(dev)
         metrics, out = eval_step(batch)
+        if masked_step is not None:
+            mask = hungarian(out["ds_mat"], batch.n_nodes[:, 0],
+                             batch.n_nodes[:, 1])
+            metrics, out = masked_step(batch, mask)
         if on_batch is not None:
             on_batch(bi, batch, out)
         labels.append(batch.label.cpu().numpy())
@@ -184,8 +204,6 @@ def main(argv=None):
 
     from .. import resolve_device
 
-    if args.discretize == "hungarian":
-        raise _waits("--discretize hungarian", "Queue A: hungarian + native/")
     if args.augment:
         raise _waits("--augment", "Queue A: training")
     if args.bf16:
@@ -252,8 +270,11 @@ def _run(args, device, log):
                                            viz["saved"], args.num_viz)
 
     try:
+        if args.discretize == "hungarian":
+            log("discretize=hungarian: host LAPJV between two forwards "
+                "(second forward per batch)")
         res = evaluate_loader(model, loader, score=args.score, log=log,
-                              on_batch=on_batch)
+                              on_batch=on_batch, discretize=args.discretize)
     finally:
         loader.close()
     labels, scores = res["labels"], res["scores"]

@@ -1,15 +1,24 @@
 """One-shot fingerprint pair verification: two images -> match verdict.
 
-Give two fingerprint images with their keypoint files and get a verification
-score, the predicted matchable-keypoint count and the greedy keypoint
+Give two fingerprint images (with optional keypoint files) and get a
+verification score, the predicted matchable-keypoint count and the keypoint
 correspondence as one JSON line on stdout. Same flags and JSON keys as the
 JAX package's `cli/match.py`, plus `--device` (default `cuda`; `cuda` without
 a GPU is an error, never a silent CPU run).
 
-Keypoints come from `--kpts1/--kpts2` files (.tsv/.csv/.txt). Pairs in a
-bucket of `--n-max >= 256` keypoints (or `--univ-kernel`) take the UNIV route:
-the three association-GNN aggregations run through the CUDA kernel of
-`kernels/assoc_univ_v3`.
+Keypoints come from `--kpts1/--kpts2` files (.tsv/.csv/.txt), or are detected
+when a file is omitted: the classical DPF detector (`--detector dpf`, the
+default, host numpy / cv2 work, no weights) or a trained patch CNN
+(`--detector cnn --detector-checkpoint results/poredet/net17nomax.npz`, its
+forward on `--device`). Pairs in a bucket of `--n-max >= 256` keypoints (or
+`--univ-kernel`) take the UNIV route: the three association-GNN aggregations
+run through the CUDA kernel of `kernels/assoc_univ_v3`.
+
+`--discretize hungarian` reproduces the reference's full discretization: the
+first forward's `ds_mat` goes to the host, the native LAPJV solver
+(`ops.hungarian`) solves its valid block, and a second full forward
+(`train.step.make_eval_step_masked`, with the UNIV plan on the UNIV route)
+ranks its greedy fill by `mask * ds_mat`.
 
 Weights: `--checkpoint-dir D --checkpoint NAME` loads the state_dict file
 `D/NAME.pt` (as `convert.from_flax_variables` produces; `torch.save`); with
@@ -17,12 +26,14 @@ no checkpoint the weights are initialised from `--seed`.
 
 The work is split so that a server (or a script without image files) can
 enter below the file reading: `read_pair` is the only function that touches
-files and `cv2`; `match_arrays` takes two standardized image arrays and two
-keypoint arrays and returns the result dict.
+files and `cv2` (and runs the detector where a keypoint file is missing);
+`match_arrays` takes two standardized image arrays and two keypoint arrays
+and returns the result dict.
 
 Example:
     python -m fpmatch_tpu_torch.cli.match a.png b.png \
         --kpts1 a.tsv --kpts2 b.tsv --n-max 600 --e-max 3840
+    python -m fpmatch_tpu_torch.cli.match a.png b.png --discretize hungarian
 """
 from __future__ import annotations
 
@@ -47,10 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="keypoint file for image1 (.tsv/.csv/.txt)")
     ap.add_argument("--kpts2", default=None)
     ap.add_argument("--detector", default="dpf", choices=["dpf", "cnn"],
-                    help="pore detector when no keypoint file is given "
-                         "(not ported yet)")
+                    help="pore detector when no keypoint file is given")
     ap.add_argument("--detector-arch", default="net17nomax")
-    ap.add_argument("--detector-checkpoint", default=None)
+    ap.add_argument("--detector-checkpoint", default=None,
+                    help=".npz of detector variables (--detector cnn), e.g. "
+                         "results/poredet/net17nomax.npz")
     ap.add_argument("--detector-probability", type=float, default=0.65)
     ap.add_argument("--detector-nms-iou", type=float, default=0.2)
     ap.add_argument("--checkpoint-dir", default="checkpoints")
@@ -62,7 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "or k alone")
     ap.add_argument("--discretize", default="greedy",
                     choices=["greedy", "hungarian"],
-                    help="'hungarian' is not ported yet")
+                    help="'hungarian' reproduces the reference's full "
+                         "discretization (host LAPJV between two forwards); "
+                         "'greedy' (default) ranks by the soft-top-k map "
+                         "directly")
     ap.add_argument("--threshold", type=float, default=None,
                     help="decision threshold; when set, the JSON carries "
                          "a genuine true/false verdict")
@@ -88,10 +103,48 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def read_pair(args):
-    """Everything that reads files: both images, both keypoint files, the
-    standardize step. Returns ((img1, P1), (img2, P2)) — (240, 320, 3) uint8
-    images and (n, 2) float32 keypoints inside the crop — or an error dict."""
+def gray_for_detector(image: np.ndarray) -> np.ndarray:
+    """The gray image the JAX CLI hands its detectors: float32 luma
+    `image[..., :3] @ [0.299, 0.587, 0.114]`, then a truncating uint8 cast
+    (not `data.pipeline.rgb_to_gray`, which rounds as cv2 does)."""
+    gray = image if image.ndim == 2 else np.asarray(
+        image[..., :3] @ [0.299, 0.587, 0.114], np.float32)
+    return gray.astype(np.uint8)
+
+
+def make_detector(args):
+    """The pore detector `--detector` names: a function (H, W) uint8 gray
+    image -> (n, 2) float32 xy pores. `cnn` loads `--detector-arch` with the
+    weights of `--detector-checkpoint` on `--device` and detects with the
+    default window (17), as the JAX CLI does."""
+    if args.detector == "dpf":
+        from ..poredet.dpf import detect_pores_lemes
+        return detect_pores_lemes
+    if not args.detector_checkpoint:
+        raise ValueError("--detector cnn needs --detector-checkpoint (an .npz "
+                         "of detector variables, e.g. "
+                         "results/poredet/net17nomax.npz)")
+    from ..poredet.inference import detect_pores_in_image
+    from ..poredet.train import load_detector
+
+    model = load_detector(args.detector_arch, args.detector_checkpoint,
+                          device=args.device)
+
+    def detect(gray):
+        coords, _ = detect_pores_in_image(
+            model, gray, probability=args.detector_probability,
+            nms_iou=args.detector_nms_iou)
+        return coords
+
+    return detect
+
+
+def read_pair(args, detector=None):
+    """Everything that reads files: both images, both keypoint files (or the
+    pore detector where one is omitted: `detector`, else `make_detector`),
+    the standardize step. Returns ((img1, P1), (img2, P2)) — (240, 320, 3)
+    uint8 images and (n, 2) float32 keypoints inside the crop — or an error
+    dict."""
     from pathlib import Path
 
     from ..data.augmentation import standardize
@@ -101,11 +154,14 @@ def read_pair(args):
     views = []
     for path, kpts, prefix in ((args.image1, args.kpts1, "q1"),
                                (args.image2, args.kpts2, "q2")):
-        if not kpts:
-            raise _waits("keypoint detection (--detector dpf|cnn)",
-                         "Queue A: pore-detector route")
         img = _load_image(path)
-        views.append((img, _annos_of(read_keypoints(Path(kpts), prefix))))
+        if kpts:
+            annos = _annos_of(read_keypoints(Path(kpts), prefix))
+        else:
+            detector = detector or make_detector(args)
+            annos = [[f"{prefix}_{i}", float(x), float(y)] for i, (x, y)
+                     in enumerate(np.asarray(detector(gray_for_detector(img))))]
+        views.append((img, annos))
     if not views[0][1] or not views[1][1]:
         return {"error": "no keypoints found",
                 "n_kpts": [len(views[0][1]), len(views[1][1])]}
@@ -153,20 +209,29 @@ def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
 
 def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
                  threshold=None, univ_kernel=None, checkpoint=None,
-                 return_outputs: bool = False):
+                 return_outputs: bool = False, discretize: str = "greedy"):
     """Serve one request below the file reading.
 
     :param model: an NGMNet (its device is where the request runs)
     :param img1, img2: standardized (240, 320, 3) RGB or (240, 320[, 1])
         grayscale uint8 images
     :param P1, P2: (n, 2) float32 keypoints (x, y) in image pixels
+    :param discretize: "greedy", or "hungarian" for the host LAPJV and a
+        second, masked forward
     :return: the result dict the CLI prints (and, with `return_outputs`,
-        the model's output dict)
+        the model's output dict: the second pass's eval outputs with
+        "hungarian")
     """
+    if discretize not in ("greedy", "hungarian"):
+        raise ValueError(f"discretize must be greedy or hungarian, not "
+                         f"{discretize!r}")
     cfg = model.cfg
     batch, plan = build_request(img1, P1, img2, P2, cfg, univ_kernel)
     dev = next(model.parameters()).device
-    out = model(batch.to(dev), univ_plan=plan)
+    batch = batch.to(dev)
+    out = model(batch, univ_plan=plan)
+    if discretize == "hungarian":
+        out = hungarian_pass(model, batch, out, plan)
 
     cls_prob = float(out["cls_prob"][0])
     k_prob = float(out["k_prob"][0])
@@ -189,6 +254,21 @@ def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
         result["threshold"] = threshold
         result["genuine"] = bool(sc >= threshold)
     return (result, out) if return_outputs else result
+
+
+def hungarian_pass(model, batch, out, plan=None):
+    """The second half of `--discretize hungarian`: the host LAPJV solve of
+    the first pass's `ds_mat` on each valid block, then a full forward whose
+    greedy fill ranks by `mask * ds_mat` (with the same UNIV plan). Returns
+    the masked step's outputs (cls_prob, k_prob, perm_mat, ds_mat)."""
+    from ..core.config import default_stages
+    from ..ops.hungarian import hungarian
+    from ..train.step import make_eval_step_masked
+
+    mask = hungarian(out["ds_mat"], batch.n_nodes[:, 0], batch.n_nodes[:, 1])
+    _, out = make_eval_step_masked(model, default_stages()[-1],
+                                   univ_plan=plan)(batch, mask)
+    return out
 
 
 def load_model(cfg, args):
@@ -216,8 +296,6 @@ def main(argv=None):
     from . import model_config_from_args
     from .. import resolve_device
 
-    if args.discretize == "hungarian":
-        raise _waits("--discretize hungarian", "Queue A: hungarian + native/")
     if args.viz:
         raise _waits("--viz", "Queue A: remaining CLIs / utils")
     resolve_device(args.device)          # fail before any work without a GPU
@@ -232,7 +310,8 @@ def main(argv=None):
     model, ckpt_name = load_model(cfg, args)
     result = match_arrays(model, i1, P1, i2, P2, score=args.score,
                           threshold=args.threshold,
-                          univ_kernel=args.univ_kernel, checkpoint=ckpt_name)
+                          univ_kernel=args.univ_kernel, checkpoint=ckpt_name,
+                          discretize=args.discretize)
     print(json.dumps(result))
     return 0
 

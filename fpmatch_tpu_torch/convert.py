@@ -11,10 +11,13 @@ The two models name their children alike, so the mapping is by path:
   raw parameters (`conv{i}_weight`, `conv{i}_root`, `conv{i}_bias`,
   `mix{1,2}_{weight,bias}`, `norm{1,2}_{scale,bias}`)  -> carried by name
 
+`pore_variables_to_state_dict` does the same for the pore detector.
+
 The caller converts its tree to numpy first (e.g.
 `jax.tree_util.tree_map(np.asarray, variables)`); nothing here imports JAX.
 Activations need no conversion: both packages keep images and feature maps
-channels-last at their public boundaries.
+channels-last at their public boundaries (the pore detector's is a (H, W)
+image, `poredet.inference.detect_pores_in_image`).
 """
 from __future__ import annotations
 
@@ -83,4 +86,20 @@ def from_flax_variables(variables: Mapping, cfg: Config
         raise ValueError(
             f"converted tree does not match NGMNet(cfg): missing={missing} "
             f"unexpected={extra} shape-mismatch={bad}")
+    return out
+
+
+def pore_variables_to_state_dict(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """A pore detector's Flax variables (`{"params", "batch_stats"}` of numpy
+    arrays, as `poredet.train.load_variables` reads them) -> state_dict of
+    the port's `poredet.architectures` model of the same variant: conv
+    kernels HWIO -> OIHW, BatchNorm scale / bias -> weight / bias, mean / var
+    -> running statistics (the port's modules carry the Flax names, so the
+    mapping is by path), `num_batches_tracked` 0."""
+    out = flax_tree_to_state_dict(variables["params"],
+                                  variables.get("batch_stats"))
+    for k in [k for k in out if k.endswith(".running_mean")]:
+        out[k[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.zeros((), dtype=torch.long)
     return out

@@ -150,12 +150,11 @@ def clustering_accuracy(pred_labels: np.ndarray, gt_labels: np.ndarray
     for i, p in enumerate(pu):
         for j, g in enumerate(gu):
             conf[i, j] = np.sum((pred_labels == p) & (gt_labels == g))
-    # the JAX package solves this assignment with its native LAPJV; scipy's
-    # solver finds the same optimum value
-    from scipy.optimize import linear_sum_assignment
+    from ..native import lap_maximize_batch
 
-    rows, cols = linear_sum_assignment(conf, maximize=True)
-    return float(conf[rows, cols].sum() / len(gt_labels))
+    out = lap_maximize_batch(conf[None].astype(np.float32),
+                             np.array([len(pu)]), np.array([len(gu)]))
+    return float((out[0] * conf).sum() / len(gt_labels))
 
 
 def rand_index(pred_labels: np.ndarray, gt_labels: np.ndarray) -> float:

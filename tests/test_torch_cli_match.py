@@ -171,19 +171,166 @@ def test_cli_match_errors(pair_files, tmp_path, capsys):
                                   tsv2, *cpu], capsys)
     assert rc == 2 and out["error"] == "no keypoints found"
     # routes that wait for later work name their ROADMAP item
-    for extra in (["--kpts1", tsv1], ["--kpts1", tsv1, "--kpts2", tsv2,
-                                      "--discretize", "hungarian"],
-                  ["--kpts1", tsv1, "--kpts2", tsv2, "--bf16"],
+    for extra in (["--kpts1", tsv1, "--kpts2", tsv2, "--bf16"],
                   ["--kpts1", tsv1, "--kpts2", tsv2, "--viz", "x.png"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_match.main([png1, png2, *extra, *cpu])
     with pytest.raises(FileNotFoundError):
         t_match.main([str(tmp_path / "nope.png"), png2, "--kpts1", tsv1,
                       "--kpts2", tsv2, *cpu])
+    # the CNN detector needs its weights
+    with pytest.raises(ValueError, match="--detector-checkpoint"):
+        t_match.main([png1, png2, "--kpts1", tsv1, "--detector", "cnn",
+                      *cpu])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_match.main([png1, png2, "--kpts1", tsv1, "--kpts2", tsv2,
                           *SHAPE_FLAGS])          # default device is cuda
+
+
+# ------------------------------------------------ bare images and hungarian
+
+WEIGHTS = REPO / "results" / "poredet" / "net17nomax.npz"
+
+
+@pytest.fixture(scope="module")
+def bare_images(tmp_path_factory):
+    """Two impressions of one finger from the port's generator (480x400),
+    written as PNG with no keypoint files."""
+    cv2 = pytest.importorskip("cv2")
+    from fpmatch_tpu_torch.data.generator import render_impression
+
+    d = tmp_path_factory.mktemp("bare")
+    out = []
+    for s in (1, 2):
+        img = render_impression(3, s)[0]
+        out.append(str(d / f"imp{s}.png"))
+        cv2.imwrite(out[-1], np.stack([img] * 3, -1))
+    return out
+
+
+def _same_json(got, want, exact_kpts=True):
+    """The JSON of the two CLIs: keys, counts and kinds exact; probabilities
+    to 5e-3 and the match lists up to the pairs both runs rank well apart
+    (random weights at tau = 0.01, see test_cli_match_same_json_as_jax_cli).
+    """
+    assert list(got) == list(want)
+    for k in ("score_kind", "n_kpts") if exact_kpts else ("score_kind",):
+        assert got[k] == want[k], k
+    for k in ("score", "cls_prob", "k_prob"):
+        assert abs(got[k] - want[k]) <= 5e-3, (k, got[k], want[k])
+    assert abs(got["k_pred"] - want["k_pred"]) <= 5e-3 * min(got["n_kpts"])
+    assert abs(got["n_matched"] - want["n_matched"]) <= 1
+    assert got["n_matched"] == len(got["matches"])
+    common = {tuple(m) for m in got["matches"]} & {tuple(m) for m in
+                                                   want["matches"]}
+    assert len(common) >= want["n_matched"] - 2
+
+
+@pytest.mark.parametrize("extra", [
+    ["--discretize", "hungarian"],
+    ["--detector", "cnn", "--detector-checkpoint", str(WEIGHTS)]],
+    ids=["dpf-hungarian", "cnn-greedy"])
+def test_cli_match_bare_images_same_json_as_jax_cli(
+        bare_images, converted_checkpoint, capsys, extra):
+    """Two images and no keypoint files on both CLIs: the Lemes DPF detector
+    (the JAX CLI's default) with the full Hungarian discretization (host
+    LAPJV between two forwards), and the trained CNN detector with the
+    greedy one."""
+    d = Path(converted_checkpoint).parent
+    flags = [*bare_images, *SHAPE_FLAGS, *extra]
+    rc_j, want = _run(j_match.main, flags + [
+        "--checkpoint-dir", str(d / "no_such_dir")], capsys)
+    rc_t, got = _run(t_match.main, flags + [
+        "--checkpoint-dir", converted_checkpoint, "--device", "cpu"], capsys)
+    assert rc_j == rc_t == 0
+    assert got["n_kpts"] == want["n_kpts"] and min(got["n_kpts"]) >= 10
+    _same_json({**got, "checkpoint": None}, want)
+
+
+@pytest.mark.parametrize("detector", ["dpf", "cnn"])
+def test_detector_route_gives_the_jax_cli_keypoints(bare_images, detector):
+    """`read_pair` without keypoint files against the JAX CLI's
+    `_load_annos` + standardize: the same gray image (float32 luma, then a
+    truncating cast), the same detections, the same keypoints after the
+    crop, bit for bit."""
+    from fpmatch_tpu.data.augmentation import standardize as j_standardize
+    from fpmatch_tpu.data.pipeline import _load_image as j_load
+
+    flags = [*bare_images, "--n-max", "600", "--detector", detector,
+             "--device", "cpu"]
+    if detector == "cnn":
+        flags += ["--detector-checkpoint", str(WEIGHTS)]
+    args = t_match.build_parser().parse_args(flags)
+    got = t_match.read_pair(args)
+    det = {"arch": args.detector_arch,
+           "checkpoint": args.detector_checkpoint,
+           "probability": args.detector_probability,
+           "nms_iou": args.detector_nms_iou}
+    for (img_t, P_t), path, prefix in zip(got, bare_images, ("q1", "q2")):
+        img = j_load(path)
+        assert np.array_equal(t_match.gray_for_detector(img), np.asarray(
+            img[..., :3] @ [0.299, 0.587, 0.114], np.float32).astype(
+                np.uint8))
+        im, an = j_standardize(img, j_match._load_annos(img, None, prefix,
+                                                        detector, det))
+        want = np.array([[x, y] for _, x, y in an[:600]], np.float32)
+        assert np.array_equal(img_t, im)
+        assert len(P_t) >= 10 and np.array_equal(P_t, want)
+
+
+def test_cli_match_cnn_detector_and_hungarian_on_both_routes(
+        bare_images, converted_checkpoint, capsys):
+    """`--detector cnn` with the trained net17nomax weights serves the bare
+    pair; `--discretize hungarian` on the UNIV route (`--univ-kernel`, the
+    plan carried into the masked pass) gives the bucket route's verdict."""
+    common = [*bare_images, *SHAPE_FLAGS, "--checkpoint-dir",
+              converted_checkpoint, "--device", "cpu", "--detector", "cnn",
+              "--detector-checkpoint", str(WEIGHTS)]
+    rc, greedy = _run(t_match.main, common, capsys)
+    assert rc == 0 and min(greedy["n_kpts"]) >= 10
+    _, bucket = _run(t_match.main, common + ["--discretize", "hungarian"],
+                     capsys)
+    _, univ = _run(t_match.main, common + ["--discretize", "hungarian",
+                                           "--univ-kernel"], capsys)
+    for res in (bucket, univ):
+        assert res["n_matched"] == min(round(res["k_pred"]),
+                                       min(res["n_kpts"]))
+    _same_json(univ, bucket)
+
+
+def test_match_arrays_hungarian_matches_lie_in_the_lapjv_mask(
+        pair_files, converted_checkpoint):
+    """Below the files: the first forward's ds_mat, its host LAPJV mask, and
+    the second (masked) pass of `match_arrays(discretize="hungarian")`:
+    every match is a cell of the mask, `n_matched == round(k_pred)`, on the
+    bucket and the UNIV route."""
+    from fpmatch_tpu_torch.ops.hungarian import hungarian_host
+
+    d, files = pair_files
+    args = t_match.build_parser().parse_args(_argv(files, [
+        "--checkpoint-dir", converted_checkpoint, "--device", "cpu"]))
+    cfg = model_config_from_args(args)
+    (i1, P1), (i2, P2) = t_match.read_pair(args)
+    model, _ = t_match.load_model(cfg, args)
+    for univ in (None, True):
+        batch, plan = t_match.build_request(i1, P1, i2, P2, cfg, univ)
+        assert (plan is None) == (univ is None)
+        first = model(batch.to("cpu"), univ_plan=plan)
+        mask = hungarian_host(first["ds_mat"], batch.n_nodes[:, 0],
+                              batch.n_nodes[:, 1])[0]
+        res, out = t_match.match_arrays(model, i1, P1, i2, P2,
+                                        univ_kernel=univ,
+                                        discretize="hungarian",
+                                        return_outputs=True)
+        perm = out["perm_mat"][0].numpy()
+        assert set(out) == {"cls_prob", "k_prob", "perm_mat", "ds_mat"}
+        assert perm.sum() == res["n_matched"] > 0
+        assert (perm <= mask).all()
+        assert res["n_matched"] == min(round(res["k_pred"]), min(res[
+            "n_kpts"]))
+    with pytest.raises(ValueError, match="discretize"):
+        t_match.match_arrays(model, i1, P1, i2, P2, discretize="exact")
 
 
 def test_read_keypoints_formats(tmp_path):
@@ -247,7 +394,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "new = ['cli.evaluate', 'data.benchmark', 'data.generator', "
         "'evaluation.metrics', 'kernels.assoc_bucket', 'kernels.assoc_univ', "
         "'kernels.inoculate', 'scripts.tune_univ', 'train.checkpoints', "
-        "'train.losses', 'train.step', 'utils.visualize']\n"
+        "'train.losses', 'train.step', 'utils.visualize', 'native', "
+        "'ops.hungarian', 'poredet.architectures', 'poredet.convert', "
+        "'poredet.dpf', 'poredet.evaluate', 'poredet.inference', "
+        "'poredet.patches', 'poredet.train', 'cli.detect_pores']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n")

@@ -405,6 +405,57 @@ def test_eval_step_masked_reranks_the_greedy_fill(eval_case):
     assert (t2n(got["perm_mat"]) <= mask).all()
 
 
+def test_evaluate_loader_hungarian_matches_the_jax_flow(eval_case, tmp_path):
+    """`evaluate_loader(..., discretize="hungarian")` against what the JAX
+    CLI runs per batch: eval step, host LAPJV (`hungarian_host`) on its
+    ds_mat, masked eval step. Every pair's matches lie in its LAPJV mask."""
+    from fpmatch_tpu.ops.hungarian import hungarian_host as j_hungarian
+    from fpmatch_tpu.train.step import make_eval_step_masked as j_masked
+
+    jcfg, tcfg, _, model, v, net = eval_case
+    jb, tb = _benches(tmp_path, "test", "classify")
+    jpd = j_pipeline.PairDataset(jb, jcfg, augment=False)
+    tpd = t_pipeline.PairDataset(tb, tcfg, augment=False)
+    jpd.pairs, tpd.pairs = jpd.pairs[:6], tpd.pairs[:6]
+    loader = t_pipeline.DataLoader(tpd, tcfg, batch_size=4, num_workers=1,
+                                   drop_last=False, device="cpu")
+    perms = []
+    res = t_evaluate.evaluate_loader(
+        net, loader, discretize="hungarian",
+        on_batch=lambda bi, b, out: perms.append(
+            (b, t2n(out["perm_mat"]), t2n(out["ds_mat"]))))
+    state = TrainState(v["params"], v["batch_stats"], None, jnp.zeros(()))
+    stage = j_default_stages()[-1]
+    jstep, jmasked = j_make_eval_step(model, stage), j_masked(model, stage)
+    cls, kp = [], []
+    for b in j_pipeline.DataLoader(jpd, jcfg, batch_size=4, num_workers=1,
+                                   drop_last=False):
+        _, out = jstep(state, b)
+        mask = j_hungarian(np.asarray(out["ds_mat"]),
+                           np.asarray(b.n_nodes[:, 0]),
+                           np.asarray(b.n_nodes[:, 1]))
+        _, out = jmasked(state, b, mask)
+        cls.append(np.asarray(out["cls_prob"]))
+        kp.append(np.asarray(out["k_prob"]))
+    assert len(res["scores"]) == 6 and len(perms) == 2
+    np.testing.assert_allclose(res["cls_scores"], np.concatenate(cls),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(res["k_probs"], np.concatenate(kp),
+                               rtol=1e-3, atol=1e-3)
+    for b, perm, _ in perms:
+        first = t_step.make_eval_step(net, t_default_stages()[-1])(b)[1]
+        mask = t2n(hungarian_mask_of(first, b))
+        assert (perm <= mask).all() and perm.sum() > 0
+    with pytest.raises(ValueError):
+        t_evaluate.evaluate_loader(net, loader, discretize="exact")
+
+
+def hungarian_mask_of(out, batch):
+    from fpmatch_tpu_torch.ops.hungarian import hungarian
+
+    return hungarian(out["ds_mat"], batch.n_nodes[:, 0], batch.n_nodes[:, 1])
+
+
 def test_evaluate_loader_scores_every_pair_once(eval_case, tmp_path):
     """`cli.evaluate.evaluate_loader` over the fixture's test split with the
     narrow model: one score per pair in pair order, a short last batch, the
@@ -539,6 +590,23 @@ def test_cli_evaluate_on_the_cpu_writes_the_artifacts(tmp_path, monkeypatch,
     assert not list(out2.glob("match_*.png"))
 
 
+def test_cli_evaluate_discretize_hungarian_runs(tmp_path, monkeypatch):
+    """`--discretize hungarian` (it raised until the native library was
+    ported): one score per pair, and the log says which discretization."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(t_evaluate, "have_matplotlib", lambda: False)
+    out = tmp_path / "out"
+    t_evaluate.main(CLI_ARGS + [
+        "--output-dir", str(out), "--batch-size", "2", "--limit", "3",
+        "--device", "cpu", "--checkpoint-dir", str(tmp_path / "none"),
+        "--discretize", "hungarian"])
+    assert "discretize=hungarian" in (out / "eval.log").read_text()
+    rows = list(csv.reader(open(out / "scores.csv")))
+    assert len(rows) == 4
+    for r in rows[1:]:
+        assert abs(float(r[3]) - float(r[4]) * float(r[5])) < 2e-6
+
+
 def test_cli_evaluate_without_matplotlib_skips_the_drawings(tmp_path,
                                                            monkeypatch):
     """Where matplotlib is missing the scores and metrics are still written;
@@ -559,7 +627,6 @@ def test_cli_evaluate_without_matplotlib_skips_the_drawings(tmp_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--discretize", "hungarian"], "hungarian"),
     (["--bf16"], "bf16"),
     (["--hyperedge"], "hyperedge"),
     (["--cls-k-features"], "hyperedge"),

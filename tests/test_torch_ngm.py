@@ -240,6 +240,63 @@ def test_ngm_univ_route_matches_jax(univ_bf16):
                         for a in tb)))
 
 
+def test_eval_step_masked_univ_route_matches_jax(monkeypatch):
+    """The masked step of a UNIV request against the JAX model built with
+    its plan (Pallas interpret mode; the outputs of JAX's masked step are its
+    forward's with the mask), given the same plan and mask. The plan must reach the forward: the UNIV
+    aggregation runs once per GNN layer in the masked pass, and a step built
+    without the plan would take the bucket route instead."""
+    from fpmatch_tpu_torch.core.config import default_stages as t_stages
+    from fpmatch_tpu_torch.models import ngm as t_ngm
+    from fpmatch_tpu_torch.train import step as t_step
+
+    jcfg = tiny_jax_config(n_max=16, e_max=96, sk_tau=0.05)
+    batch = j_synth(jcfg, 1, n_range=(11, 15), image_hw=(32, 48), seed=7)
+    N = jcfg.shapes.n_max
+    n2 = int(batch.n_nodes[0, 1])
+    e1, e2 = int(batch.n_edges[0, 0]), int(batch.n_edges[0, 1])
+    s1, d1 = np.asarray(batch.src[0, 0, :e1]), np.asarray(batch.dst[0, 0, :e1])
+    s2, d2 = np.asarray(batch.src[0, 1, :e2]), np.asarray(batch.dst[0, 1, :e2])
+    pts2 = np.full((N, 2), 1e9, np.float32)
+    pts2[:n2] = np.asarray(batch.points[0, 1, :n2])
+    pts2[n2:, 0] += np.arange(N - n2)
+    caps = dict(transpose=True, n1=N, s1_cap=3, s2_cap=3)
+    v = JNet(jcfg).init(jax.random.PRNGKey(0), batch, train=False)
+    v = damp_afau_mixing(randomize_batch_stats(v))
+    jmodel = JNet(jcfg, univ_plan=j_plan(pts2, s1, d1, s2, d2, **caps))
+    mask = np.zeros((1, N, N), np.float32)
+    mask[0, np.arange(N), (np.arange(N) + 2) % N] = 1
+    # the JAX masked step's outputs are its forward's with the mask (eager
+    # here: jitting the interpreted Pallas kernel costs half a minute)
+    want = jmodel.apply(v, batch, train=False,
+                        hungarian_mask=jnp.asarray(mask))
+
+    tcfg = to_torch_config(jcfg)
+    net = build_model(tcfg, device="cpu",
+                      state_dict=from_flax_variables(v, tcfg))
+    calls = []
+    univ = t_ngm.assoc_matvec_univ_v3
+    monkeypatch.setattr(t_ngm, "assoc_matvec_univ_v3",
+                        lambda *a, **k: calls.append(1) or univ(*a, **k))
+    plan = t_plan(pts2, s1, d1, s2, d2, **caps)
+    tb = _torch_batch(batch).to("cpu")
+    _, got = t_step.make_eval_step_masked(net, t_stages()[-1],
+                                          univ_plan=plan)(
+        tb, torch.from_numpy(mask))
+    assert len(calls) == tcfg.ngm.gnn_layers == 3
+    assert np.array_equal(t2n(got["perm_mat"]), np.asarray(want["perm_mat"]))
+    assert (t2n(got["perm_mat"]) <= mask).all()
+    for k, tol in (("cls_prob", 1e-4), ("ds_mat", 1e-4), ("k_prob", 1e-3)):
+        np.testing.assert_allclose(t2n(got[k]), np.asarray(want[k]),
+                                   rtol=tol, atol=tol, err_msg=k)
+    # the unmasked step carries the plan too
+    t_step.make_eval_step(net, t_stages()[-1], univ_plan=plan)(tb)
+    assert len(calls) == 6
+    t_step.make_eval_step_masked(net, t_stages()[-1])(
+        tb, torch.from_numpy(mask))
+    assert len(calls) == 6                  # no plan: the bucket route
+
+
 def test_ngm_untouched_init_at_model_temperature():
     """Flax's own init (AFA-U mixing weights in U(-10, 10)) and the config's
     tau = 0.01. The discrete result and everything upstream of the noise
