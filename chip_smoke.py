@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and evaluation paths on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's serving, evaluation and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
-    python3 chip_smoke.py --profile  # + torch.profiler tables of one request
-                                     #   and of one evaluate batch
+    python3 chip_smoke.py --profile  # + torch.profiler tables of one request,
+                                     #   one evaluate batch and one train step
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -71,6 +71,23 @@ Phases (each prints its own lines; any failure exits non-zero):
               against the CPU
  14. evaluate evaluate_loader with discretize="hungarian" over the 70-pair
               split, one batch against the CPU run
+ 15. backward assoc_grad (K6, the edge / diagonal gradient) against its plain
+              version at B=8 / N=64 / E=384, C=1 / 17, both orientations,
+              and B=2 / N=256 / E=1536 (bit-identical over two launches);
+              dX through K2 / K3 with the roles swapped against the plain
+              transposed product; the ops.assoc Function's gradients against
+              torch.autograd of the plain forward (all within 1e-5 of the
+              range); K6 timed beside its plain version and its bound
+ 16. train    one train step of stage 1 and then of stage 2 at full width,
+              B=2, on the card and on the port's CPU path, TF32 off: loss
+              terms, every gradient, BatchNorm statistics, frozen tensors
+              bit for bit (limits in `phase_train_parity`)
+ 17. train    python -m fpmatch_tpu_torch.cli.train's `main` at full width
+              (n_max 64, e_max 384, B=8) through stages 1-6 on a synthetic
+              split written here, 4 steps a stage, twice; per stage step ms,
+              pairs/s, losses, K2 forward / backward and K6 launches (K6 and
+              the K2 backward in stages 1, 3, 5 only); the checkpoints load
+              back; then `--smoke` once
 
 Weights are initialised from a seed (the detector's are the trained ones of
 results/poredet/net17nomax.npz), images and keypoints are made from a seed;
@@ -99,6 +116,7 @@ if not torch.cuda.is_available():
 
 from fpmatch_tpu_torch import native
 from fpmatch_tpu_torch.cli import evaluate as cli_evaluate
+from fpmatch_tpu_torch.cli import train as cli_train
 from fpmatch_tpu_torch.cli import match as cli_match
 from fpmatch_tpu_torch.cli import model_config_from_args
 from fpmatch_tpu_torch.cli.match import (build_parser, build_request,
@@ -112,10 +130,14 @@ from fpmatch_tpu_torch.data.generator import (generate_synthetic_dataset,
 from fpmatch_tpu_torch.data.pipeline import DataLoader, PairDataset
 from fpmatch_tpu_torch.kernels import _build
 from fpmatch_tpu_torch.kernels import assoc_bucket as k23
+from fpmatch_tpu_torch.kernels import assoc_grad as k6
 from fpmatch_tpu_torch.kernels import assoc_univ as k4
 from fpmatch_tpu_torch.kernels import assoc_univ_v3 as k1
 from fpmatch_tpu_torch.kernels import inoculate as k5
+from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch
+from fpmatch_tpu_torch.models import ngm as t_ngm
 from fpmatch_tpu_torch.models.ngm import build_model
+from fpmatch_tpu_torch.ops import assoc as ops_assoc
 from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_matvec,
                                          assoc_matvec_chunked)
 from fpmatch_tpu_torch.ops.hungarian import hungarian_host
@@ -124,7 +146,11 @@ from fpmatch_tpu_torch.poredet.inference import (candidates,
                                                  detect_pores_in_image)
 from fpmatch_tpu_torch.poredet.train import load_detector, validate_full_images
 from fpmatch_tpu_torch.scripts import tune_univ
-from fpmatch_tpu_torch.train.step import make_eval_step, make_eval_step_masked
+from fpmatch_tpu_torch.train.checkpoints import restore_params
+from fpmatch_tpu_torch.train.state import create_state, partition_of
+from fpmatch_tpu_torch.train.step import (make_eval_step,
+                                          make_eval_step_masked,
+                                          make_train_step)
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -147,7 +173,7 @@ def fail(msg):
     sys.exit(1)
 
 
-COUNTS = (k1.LAUNCHES, k23.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES)
+COUNTS = (k1.LAUNCHES, k23.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES, k6.LAUNCHES)
 
 
 def reset_counts():
@@ -964,7 +990,8 @@ def phase_serve_univ(model):
     say(f"[4 serve univ] kernel launches on the main path: {launches} "
         f"(expected {want} of assoc_univ_v3: one per GNN layer per request)")
     if launches != {"assoc_univ_v3": want, "assoc_bucket": 0,
-                    "assoc_large": 0, "assoc_univ": 0, "inoculate": 0}:
+                    "assoc_large": 0, "assoc_univ": 0, "inoculate": 0,
+                    "assoc_grad": 0}:
         fail("the UNIV route did not go through the assoc_univ_v3 kernel "
              "(and no other) once per GNN layer")
     say(f"[4 serve univ] wall ms per request after the first: "
@@ -1742,6 +1769,375 @@ def phase_evaluate_hungarian(cfg, pd):
     return launches, res, wall
 
 
+# --------------------------------------------- 15 backward kernels (K6, K2/K3)
+def grad_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed):
+    """K6 (`assoc_edge_grad`) against its plain version; dX through K2 / K3
+    with the roles swapped against the plain ops' transposed product; the
+    whole `ops.assoc` Function's gradients against torch.autograd of the
+    plain forward, all on the same CUDA inputs (padded, ragged, masked).
+    Every comparison: within 1e-5 of the reference's range (f32 on both
+    sides, only the order of sums differs); K6 bit-identical over two
+    launches."""
+    X, Kp, Ke, s1, d1, s2, d2, m1, m2, n_e = bucket_inputs(
+        rng, B, N, E, C, n_lo, n_hi)
+    g = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 30)))
+    dY = torch.randn(X.shape, device=DEV, generator=g)
+    edges = (s1, d1, s2, d2)
+    masks = dict(e1_mask=m1, e2_mask=m2)
+    em = m1[:, :, None] & m2[:, None, :]
+    got = k6.assoc_edge_grad(dY, X, *edges, transpose=transpose, **masks)
+    again = k6.assoc_edge_grad(dY, X, *edges, transpose=transpose, **masks)
+    want = k6.assoc_edge_grad_plain(dY, X, *edges, transpose=transpose,
+                                    **masks)
+    large = E * E >= CHUNKED_NNZ_THRESHOLD
+    kern = k23.assoc_matvec_large if large else k23.assoc_matvec_bucket
+    dX = kern(dY, Kp, Ke, *edges, transpose=not transpose, **masks)
+    dX_plain = assoc_matvec(dY, Kp, Ke, *edges, transpose=not transpose)
+    xs = [t.clone().requires_grad_() for t in (X, Kp, Ke)]
+    ys = [t.clone().requires_grad_() for t in (X, Kp, Ke)]
+    torch.autograd.backward(ops_assoc.assoc_matvec_auto(
+        *xs, *edges, transpose=transpose, **masks), dY)
+    torch.autograd.backward(assoc_matvec(*ys, *edges, transpose=transpose),
+                            dY)
+    torch.cuda.synchronize()
+    r = {"kernel": "assoc_grad", "B": B, "N": N, "E": E, "C": C,
+         "transpose": transpose, "dX_kernel": "assoc_large" if large
+         else "assoc_bucket",
+         "assoc_edges": float((n_e[:, 0] * n_e[:, 1]).sum()),
+         "err_vs_plain": max(relerr(got[0], want[0]),
+                             relerr(got[1], want[1])),
+         "max_abs_err": max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+         "dX_err_vs_plain": relerr(dX, dX_plain),
+         "fn_dX_err": relerr(xs[0].grad, ys[0].grad),
+         "fn_dKp_err": relerr(xs[1].grad, ys[1].grad),
+         "fn_dKe_err": relerr(xs[2].grad[em], ys[2].grad[em]),
+         "fn_dKe_padded_zero": bool((xs[2].grad[~em] == 0).all()),
+         "bit_reproducible": all(torch.equal(a, b)
+                                 for a, b in zip(got, again))}
+    for k in ("err_vs_plain", "dX_err_vs_plain", "fn_dX_err", "fn_dKp_err",
+              "fn_dKe_err"):
+        if not r[k] <= 1e-5:
+            fail(f"backward {k} = {r[k]:.3e} > 1e-5 at {r}")
+    if not (r["bit_reproducible"] and r["fn_dKe_padded_zero"]):
+        fail(f"assoc_grad: two launches differ or padded dKe != 0: {r}")
+    if timed:
+        # least work for THIS input: dY and X read once, the edge lists and
+        # masks once, dKe and dKp written once; 2 C flops per real
+        # association edge and per cell
+        nbytes = (4 * (2 * B * N * N * C + B * E * E + B * N * N)
+                  + 4 * 4 * B * E + 2 * B * E)
+        flops = 2.0 * C * r["assoc_edges"] + 2.0 * B * N * N * C
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        call = lambda: k6.assoc_edge_grad(dY, X, *edges,
+                                          transpose=transpose, **masks)
+        r.update(
+            ms=time_ms(call, flush=flush),
+            plain_ms=time_ms(lambda: k6.assoc_edge_grad_plain(
+                dY, X, *edges, transpose=transpose, **masks), reps=5,
+                flush=flush),
+            dX_ms=time_ms(lambda: kern(dY, Kp, Ke, *edges,
+                                       transpose=not transpose, **masks),
+                          flush=flush),
+            # no single PyTorch call computes dKe (a sampled product)
+            library_ms=None, bytes=nbytes, flops=flops,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return r
+
+
+def phase_backward_kernels():
+    rng = np.random.default_rng(SEED + 15)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    saved = read_counts()
+    rows = []
+    for C in (1, 17):
+        for transpose in (True, False):
+            rows.append(grad_case(rng, 8, 64, 384, C, 40, 64, transpose,
+                                  flush, timed=transpose))
+    rows.append(grad_case(rng, 2, 256, 1536, 17, 200, 256, True, flush,
+                          timed=True))
+    for r in rows:
+        say("[15 backward] " + json.dumps(r))
+    restore_counts(saved)
+    del flush
+    return rows
+
+
+# --------------------------------------- 16 one train step: card against CPU
+class GreedyTap:
+    """Wraps models.ngm.greedy_perm_batch while installed: records what it
+    returns (`record`), or returns the recorded picks after checking that it
+    keeps as many matches (`replay`). The greedy ranks a near-uniform map at
+    random init, where ties at the 1e-6 level decide a pick; replaying the
+    card's picks on the CPU keeps the comparison on the arithmetic."""
+
+    def __init__(self):
+        self.real = t_ngm.greedy_perm_batch
+        self.picks = []
+        self.mode = None
+
+    def __call__(self, rank, ks, n1, n2):
+        got = self.real(rank, ks, n1, n2)
+        if self.mode == "record":
+            self.picks.append(got.cpu())
+            return got
+        want = self.picks.pop(0)
+        if not torch.equal(got.sum((1, 2)).cpu(), want.sum((1, 2))):
+            fail("16 train parity: the CPU keeps another number of matches")
+        return want.to(got.device)
+
+    def run(self, mode, fn):
+        self.mode = mode
+        t_ngm.greedy_perm_batch = self
+        try:
+            return fn()
+        finally:
+            t_ngm.greedy_perm_batch = self.real
+
+
+def train_parity_config():
+    """The training CLI's full-width model at sk_tau = 0.05 (as the CPU
+    parity tests: the config's 0.01 multiplies rounding noise by 100 at
+    each Sinkhorn stage) and batches of 2."""
+    cfg = cli_train_config(2)
+    return dataclasses.replace(cfg, ngm=dataclasses.replace(cfg.ngm,
+                                                            sk_tau=0.05))
+
+
+def cli_train_config(batch_size):
+    """The Config `cli.train` builds from its defaults (full width)."""
+    from fpmatch_tpu_torch.core.config import Config
+    cfg = Config()
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=batch_size, image_channels=1))
+
+
+def step_and_grads(model, batch, stage):
+    state = create_state(model, stage)
+    state, metrics = make_train_step(model, stage)(state, batch)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def phase_train_parity():
+    """Stage 1 (grad clip; backbone, trunk and classifier train) and then
+    stage 2 (k head only) one step each, on the card and on the port's CPU
+    path, same weights and batch, TF32 off. Limits: loss terms 1e-4 of
+    their value (ks_loss and the total that holds it 1e-2: the AFA-U head
+    magnifies rounding ~300x on a near-uniform Sinkhorn map, and the card's
+    atomics make it vary by 5e-4 - 1e-3 from run to run); each gradient 1e-3 of its tensor's largest
+    value (a tensor below 1 % of its partition's largest is held at that
+    1 % level), the backbone's 0.1 (see below), and a cosine of 0.999 per
+    tensor; the AFA-U row half, float32-noise-bound at init, to finiteness;
+    BatchNorm running statistics 1e-4 of their range; frozen parameters and
+    statistics bit for bit."""
+    cfg = train_parity_config()
+    model_g = build_model(cfg, device="cuda", seed=SEED)
+    model_c = cpu_copy(model_g, cfg)
+    host = synthetic_pair_batch(cfg, 2, genuine_ratio=0.5, n_range=(40, 60),
+                                seed=SEED + 16)
+    bg, bc = host.to(DEV), host.to("cpu")
+    saved = read_counts()
+    tap = GreedyTap()
+    out = {}
+    for stage in default_stages()[:2]:
+        before_g = {k: v.detach().cpu().clone()
+                    for k, v in model_g.state_dict().items()}
+        before_c = {k: v.clone() for k, v in model_c.state_dict().items()}
+        with tf32_off():
+            t = time.time()
+            mg, gg = tap.run("record",
+                             lambda: step_and_grads(model_g, bg, stage))
+            torch.cuda.synchronize()
+            t_g = time.time() - t
+        t = time.time()
+        mc, gc = tap.run("replay", lambda: step_and_grads(model_c, bc, stage))
+        t_c = time.time() - t
+        part = {n: partition_of(n.split(".")[0]) for n in gc}
+        pmax = {}
+        for n, g in gc.items():
+            pmax[part[n]] = max(pmax.get(part[n], 0.0), float(g.abs().max()))
+        worst, cos = {}, {}
+        for n, g in gc.items():
+            if not torch.isfinite(gg[n]).all():
+                fail(f"16 train parity: {n} has non-finite gradients")
+            if n.startswith(("afau.row_block.", "afau.final_row_")):
+                continue
+            scale = max(float(g.abs().max()), 1e-2 * pmax[part[n]])
+            worst[n] = float((gg[n] - g).abs().max()) / scale
+            # a direction only above the 1 % floor (below it, e.g. a bias
+            # that feeds a Sinkhorn, the gradient is zero up to rounding)
+            cos[n] = 1.0 if float(g.abs().max()) < 1e-2 * pmax[part[n]] \
+                else float(torch.nn.functional.cosine_similarity(
+                    gg[n].double().reshape(-1), g.double().reshape(-1),
+                    dim=0))
+        # the backbone's gradient passes 20 train-mode BatchNorm backwards
+        # (each subtracts batch means: cancellation) and cuDNN's f32
+        # convolution backward, which sums in another order than the CPU:
+        # it is held to 10 % per element and a cosine of 0.999 per tensor;
+        # every other partition to 1e-3
+        bad_grad = {n: (e, cos[n]) for n, e in worst.items()
+                    if not (e <= (0.1 if part[n] == "backbone" else 1e-3)
+                            and cos[n] >= 0.999)}
+        loss_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+                    for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
+        stats_err, frozen_changed = {}, []
+        sd_g, sd_c = model_g.state_dict(), model_c.state_dict()
+        for k, v in sd_c.items():
+            top = k.split(".")[0]
+            stat = k.endswith(("running_mean", "running_var"))
+            if stat:        # BatchNorm in train mode: the backbone, the cls
+                moves = (stage.train_main if top == "backbone"
+                         else stage.train_cls)
+            else:
+                moves = k in gc
+            if moves and stat:
+                stats_err[k] = float((sd_g[k].cpu() - v).abs().max()) / \
+                    max(float(v.abs().max()), 1e-30)
+            elif not moves and not (torch.equal(sd_g[k].cpu(), before_g[k])
+                                    and torch.equal(v, before_c[k])):
+                frozen_changed.append(k)
+        row = {"stage": stage.name, "card_s": t_g, "cpu_s": t_c,
+               "loss_rel_err": loss_err,
+               "grad_rel_err_max": max(worst.values()),
+               "grad_rel_err_max_outside_backbone": max(
+                   (e for n, e in worst.items() if part[n] != "backbone"),
+                   default=0.0),
+               "grad_cosine_min": min(cos.values()),
+               "grad_rel_err_worst": sorted(worst.items(),
+                                            key=lambda kv: -kv[1])[:3],
+               "bn_stats_rel_err_max": max(stats_err.values(), default=0.0),
+               "n_grads": len(gc), "frozen_changed": frozen_changed}
+        say("[16 train parity] " + json.dumps(row))
+        if any(not e <= (1e-2 if k in ("ks_loss", "total_loss") else 1e-4)
+               for k, e in loss_err.items()):
+            fail(f"16 train parity: loss terms differ: {loss_err}")
+        if bad_grad:
+            fail(f"16 train parity: gradients differ: {bad_grad}")
+        if not row["bn_stats_rel_err_max"] <= 1e-4:
+            fail("16 train parity: BatchNorm statistics differ")
+        if frozen_changed:
+            fail(f"16 train parity: frozen tensors changed: "
+                 f"{frozen_changed[:5]}")
+        if set(gg) != set(gc):
+            fail("16 train parity: the card and the CPU trained other "
+                 "parameters")
+        out[stage.name] = row
+    restore_counts(saved)
+    return out
+
+
+def profile_train_step():
+    """`--profile`: one stage-1 train step at full width, B=8 (n_max 64),
+    after one warm-up step, under torch.profiler."""
+    cfg = cli_train_config(8)
+    model = build_model(cfg, device="cuda", seed=SEED)
+    batch = synthetic_pair_batch(cfg, 8, genuine_ratio=0.5, n_range=(40, 60),
+                                 seed=SEED + 17).to(DEV)
+    stage = default_stages()[0]
+    state = create_state(model, stage)
+    step = make_train_step(model, stage)
+    step(state, batch)
+    phase_profile("one train step, stage 1, B=8, full width",
+                  lambda: step(state, batch))
+
+
+# ------------------------------------------------- 17 cli.train at full width
+def stage_counter(rows):
+    """on_stage_end for cli.train: the kernel launches of each stage (the
+    deltas of the counts, which are not reset between stages)."""
+    last = read_counts()
+    bwd_last = dict(ops_assoc.BACKWARD_LAUNCHES)
+
+    def cb(stage, hist):
+        nonlocal last, bwd_last
+        now = read_counts()
+        bwd = dict(ops_assoc.BACKWARD_LAUNCHES)
+        d = {k: now[k] - last[k] for k in now}
+        db = {k: bwd[k] - bwd_last[k] for k in bwd}
+        h = hist[-1]
+        row = {"stage": stage.name,
+               "train_step_ms": h.get("train_step_ms"),
+               "train_pairs_per_s": h.get("train_pairs_per_s"),
+               "train_total_loss": h["train_total_loss"],
+               "val_total_loss": h["val_total_loss"],
+               "assoc_bucket_forward": d["assoc_bucket"] - db["assoc_bucket"],
+               "assoc_bucket_backward": db["assoc_bucket"],
+               "assoc_grad": d["assoc_grad"],
+               "other_launches": {k: v for k, v in d.items() if v and k not in
+                                  ("assoc_bucket", "assoc_grad")}}
+        rows.append(row)
+        say("[17 train] " + json.dumps(row))
+        last, bwd_last = now, bwd
+    return cb
+
+
+def run_cli_train(tag, argv):
+    rows = []
+    reset_counts()
+    for k in ops_assoc.BACKWARD_LAUNCHES:
+        ops_assoc.BACKWARD_LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    report = cli_train.main(argv, on_stage_end=stage_counter(rows))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = read_counts()
+    say(f"[{tag}] cli.train {' '.join(argv)}: {wall:.1f} s; kernel launches "
+        f"on the main path: {launches}")
+    for r in rows:
+        trunk = r["stage"] in ("stage1", "stage3", "stage5")
+        if not np.isfinite(r["train_total_loss"]):
+            fail(f"{tag}: non-finite loss in {r['stage']}")
+        if (r["assoc_grad"] > 0) != trunk or \
+                (r["assoc_bucket_backward"] > 0) != trunk:
+            fail(f"{tag}: K6 / K2 backward launches in {r['stage']} must be "
+                 f"> 0 exactly in stages 1, 3, 5: {r}")
+        if r["assoc_bucket_forward"] <= 0 or r["other_launches"]:
+            fail(f"{tag}: {r['stage']} must run K2 forward and no other "
+                 f"kernel: {r}")
+    if not all(np.isfinite(v) for v in report.values()):
+        fail(f"{tag}: the final test report is not finite: {report}")
+    say(f"[{tag}] final test report (random init, a few steps): "
+        f"{json.dumps({k: round(v, 5) for k, v in report.items()})}")
+    return rows, report, launches, wall
+
+
+def phase_train(tmp):
+    """`cli.train` through all six stages at full width (n_max 64, e_max
+    384, batches of 8, ResNet-18) on a synthetic split written here (60
+    pores), 32 training pairs per epoch, one epoch, one pass: 4 steps a
+    stage, thread workers. Run twice (the second without first-use costs);
+    the checkpoints of the first run load back; then `--smoke` once."""
+    root = f"{tmp}/train/Synthetic"
+    t = time.time()
+    generate_synthetic_dataset(root, fingers_per_split=(16, 6, 4),
+                               n_pores=60, seed=SEED, size=(320, 280))
+    say(f"[17 train] synthetic split (16 / 6 / 4 fingers, 60 pores) "
+        f"written in {time.time() - t:.1f} s")
+    runs = []
+    for i in (1, 2):
+        ckpt = f"{tmp}/train/ckpt{i}"
+        argv = ["--data-root", root, "--stages", "1,2,3,4,5,6", "--epochs",
+                "1", "--passes", "1", "--length", "32", "--thread-workers",
+                "--checkpoint-dir", ckpt, "--test-length", "16", "--seed",
+                str(SEED)]
+        runs.append(run_cli_train(f"17 train run {i}", argv))
+    # the checkpoints load back into a model of the same config
+    cfg = cli_train_config(8)
+    for name in ("stage1_best", "stage6_last"):
+        sd = restore_params(f"{tmp}/train/ckpt1", name)
+        build_model(cfg, device="cuda", state_dict=sd)
+    say("[17 train] checkpoints stage1_best and stage6_last load back")
+    smoke = run_cli_train("17 train smoke",
+                          ["--smoke", "--thread-workers", "--checkpoint-dir",
+                           f"{tmp}/train/smoke"])
+    return runs, smoke
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -1815,6 +2211,11 @@ def main():
         bare = phase_serve_bare(tmp)
         hung_univ, hung_bucket = phase_hungarian()
         launches14, _, wall14 = phase_evaluate_hungarian(ecfg, pd)
+        rows15 = phase_backward_kernels()
+        parity16 = phase_train_parity()
+        if profile:
+            profile_train_step()
+        train_runs, smoke = phase_train(tmp)
     # the sweep times K4's (32, 128) f32 row; phase 3 the rest of that row
     main4 = next(r for r in rows4 if "bound_ms" in r)
     main4.update(next({k: r[k] for k in ("ms", "kernel_ms")}
@@ -1837,6 +2238,8 @@ def main():
              "ker_mb", "ms", "kernel_ms", "gather_ms",
              "plain_ms", "k1_ms", "library_ms", "bound_ms", "bound_by",
              "bytes", "flops")
+    keys15 = ("B", "N", "E", "C", "assoc_edges", "ms", "plain_ms", "dX_ms", "dX_kernel", "library_ms", "bound_ms",
+              "bound_by", "bytes", "flops")
     keys5 = ("shape", "ms", "plain_ms", "library_ms", "first_ms",
              "second_ms", "bound_ms", "bound_by", "bytes")
     of = lambda name: [r for r in rows23 if r["kernel"] == name]
@@ -1858,7 +2261,11 @@ def main():
                      lambda r: (r["r1"], r["r2"]) == (32, 128), keys4),
         kernel_entry("inoculate", k5.SOURCE, [row5],
                      launches4["inoculate"], k5.REPLACES, lambda r: True,
-                     keys5)]}
+                     keys5),
+        # K6: launches of the first full-width cli.train run (phase 17)
+        kernel_entry("assoc_grad", k6.SOURCE, rows15,
+                     train_runs[0][2]["assoc_grad"], k6.REPLACES,
+                     lambda r: (r["N"], r["C"]) == (64, 17), keys15)]}
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
@@ -1880,6 +2287,15 @@ def main():
         "tf32_changed_detections": tf32_changed, "serve": bare,
         "hungarian_univ": hung_univ, "hungarian_bucket": hung_bucket,
         "evaluate_hungarian": {"launches": launches14, "wall_s": wall14}}}))
+    # the training slice: the card against its CPU run, the curriculum's
+    # per-stage rows of both full-width runs and of the smoke run
+    say(json.dumps({"training": {
+        "parity": parity16,
+        "runs": [{"stages": rows, "report": report, "launches": launches,
+                  "wall_s": wall} for rows, report, launches, wall in
+                 train_runs],
+        "smoke": {"stages": smoke[0], "launches": smoke[2],
+                  "wall_s": smoke[3]}}}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

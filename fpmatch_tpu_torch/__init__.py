@@ -13,18 +13,22 @@ as their JAX counterparts:
             association-graph matvec), the host Hungarian solve
   kernels/  hand-written CUDA C++ kernels (sources under kernels/csrc/, built
             with nvcc for sm_90a at first use) with a plain PyTorch version
-            beside each
+            beside each; the association matvec's backward among them
   models/   nn.Modules: ResNet-18 backbone, spline net, association-graph GNN
             layers, AFA-U k-predictor, match classifier, the full NGMNet
   data/     numpy side: synthetic pairs and datasets, the dataset index and
-            pair protocols, pair construction, collation, the loader
+            pair protocols, augmentation, pair construction, collation, the
+            loader
   evaluation/  matching and verification metrics (ROC / EER / FAR / FRR)
-  train/    the eval step, the permutation loss, checkpoint files
-  utils/    match drawings
+  train/    train and eval steps, the permutation loss, the per-stage AdamW
+            over parameter partitions, the warmup + plateau scheduler, the
+            curriculum loop, checkpoint files
+  utils/    match drawings, the metrics logger
   poredet/  the pore detector: patch-CNN family, full-image inference, DPF
   cli/      entry points (single-pair serving: `cli.match`; batched
-            verification evaluation: `cli.evaluate`; pore detection over
-            an image tree: `cli.detect_pores`)
+            verification evaluation: `cli.evaluate`; the training
+            curriculum: `cli.train`; pore detection over an image tree:
+            `cli.detect_pores`)
   scripts/  the block-size sweep of the blocked UNIV kernel (`tune_univ`)
   convert   Flax variable tree (as numpy) -> state_dict (matcher, detector)
 

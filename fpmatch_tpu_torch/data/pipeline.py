@@ -11,9 +11,12 @@ loader that feeds them to the device: the counterpart of the JAX package's
     into pinned host memory and copies on a side stream, one batch ahead of
     the consumer.
 
+A train split augments (`augment=True`, the default there): every pair's
+two views go through `data.augmentation` with an RNG seeded from (seed,
+epoch, index), as the JAX package's pipeline seeds it.
+
 This module imports neither `torch` nor `cv2` at the top: spawned workers
-import it and must never create a CUDA context. Training-time augmentation
-is not ported yet (`augment=True` raises, ROADMAP.md, Queue A: training).
+import it and must never create a CUDA context.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import numpy as np
 
 from ..core.build_graphs import build_edges, permute_edges
 from ..core.config import Config
-from .augmentation import standardize
+from .augmentation import (augment_image_pair, augment_two_images,
+                           standardize)
 from .benchmark import Benchmark
 
 
@@ -75,11 +79,6 @@ class PairDataset:
         self.cfg = cfg
         self.seed = seed
         self.augment = (bench.sets == "train") if augment is None else augment
-        if self.augment:
-            raise NotImplementedError(
-                "augmented pairs (augment=True, the default of a train "
-                "split) are not ported to fpmatch_tpu_torch yet (ROADMAP.md, "
-                "Queue A: training)")
         if cfg.ngm.hyperedge:
             raise NotImplementedError(
                 "hyperedge batches are not ported to fpmatch_tpu_torch yet "
@@ -111,9 +110,10 @@ class PairDataset:
         return a1, a2
 
     def get(self, idx: int, epoch: int = 0) -> PairSample:
-        """Sample `idx` (wrapping modulo the pair count). `epoch` seeds the
-        augmentation RNG of the JAX package and changes nothing here, where
-        only the identity-geometry view (`standardize`) is ported."""
+        """Sample `idx` (wrapping modulo the pair count) of `epoch`; the
+        augmentation RNG is seeded from (seed, epoch, idx)."""
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + epoch) * 2_000_003 + idx)
         pair = self.pairs[idx % len(self.pairs)]
         cfg = self.cfg
         n_max = cfg.shapes.n_max
@@ -124,17 +124,29 @@ class PairDataset:
         if genuine and pair[0] == pair[1]:
             img = _load_image(e1["path"])
             annos = _annos_of(e1["kpts"])
-            i1, a1 = standardize(img, annos)
-            i2, a2 = standardize(img, annos)
+            if self.augment:
+                (i1, a1), (i2, a2) = augment_image_pair(
+                    img, annos, rng,
+                    min_points=cfg.data.augment_min_points,
+                    min_common=cfg.data.augment_min_common,
+                    max_attempts=cfg.data.augment_max_attempts)
+            else:
+                i1, a1 = standardize(img, annos)
+                i2, a2 = standardize(img, annos)
             a1, a2 = self._clip_common(a1, a2, n_max)
             n = min(len(a1), len(a2))
             perm = np.eye(n, dtype=np.float32)
             label = 1.0
         else:
-            i1, a1 = standardize(_load_image(e1["path"]),
-                                 _annos_of(e1["kpts"]))
-            i2, a2 = standardize(_load_image(e2["path"]),
-                                 _annos_of(e2["kpts"]))
+            img1, img2 = _load_image(e1["path"]), _load_image(e2["path"])
+            an1, an2 = _annos_of(e1["kpts"]), _annos_of(e2["kpts"])
+            if self.augment:
+                (i1, a1), (i2, a2) = augment_two_images(
+                    img1, an1, img2, an2, rng,
+                    min_points=cfg.data.augment_min_points)
+            else:
+                i1, a1 = standardize(img1, an1)
+                i2, a2 = standardize(img2, an2)
             a1 = a1[:n_max]
             a2 = a2[:n_max]
             perm = np.zeros((len(a1), len(a2)), np.float32)

@@ -9,8 +9,9 @@ convolutions want them; the public boundary is channels-last like the JAX
 package's, so one numpy batch feeds both: images come in as (B, H, W, 3) and
 feature maps go out as (B, H_f, W_f, C). Child names equal the Flax module's
 (conv1, bn1, layer{i}_{b}, downsample_conv, downsample_bn), which is what the
-weight converter relies on. Inference only: BatchNorm uses running statistics
-(the model is kept in eval mode).
+weight converter relies on. BatchNorm runs in either mode, chosen per call
+(`forward(x, train)`, as the Flax module's argument): running statistics, or
+Flax's train mode (see `BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -20,26 +21,51 @@ import torch
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with `flax.linen.BatchNorm`'s semantics (momentum 0.9, eps
+    1e-5), the mode given per call. `train=False`: the running statistics.
+    `train=True`: the biased batch statistics normalize, and the running
+    statistics move to `0.9 old + 0.1 batch` with the BIASED batch variance
+    (`nn.BatchNorm2d` would fold in the unbiased one, drifting from the JAX
+    package by n / (n - 1) every step). Same parameters and buffers as
+    `nn.BatchNorm2d`, so state_dicts are unchanged."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, self.eps)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        shp = (1, -1, 1, 1)
+        y = (x - mean.reshape(shp)) * torch.rsqrt(var.reshape(shp) + self.eps)
+        return y * self.weight.reshape(shp) + self.bias.reshape(shp)
+
+
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, channels, 3, stride=stride,
                                padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        self.bn2 = BatchNorm2d(channels)
         self.has_downsample = in_channels != channels or stride != 1
         if self.has_downsample:
             self.downsample_conv = nn.Conv2d(in_channels, channels, 1,
                                              stride=stride, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(channels, eps=1e-5,
-                                                momentum=0.1)
+            self.downsample_bn = BatchNorm2d(channels)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         if self.has_downsample:
-            x = self.downsample_bn(self.downsample_conv(x))
+            x = self.downsample_bn(self.downsample_conv(x), train)
         return torch.relu(y + x)
 
 
@@ -57,7 +83,7 @@ class ResNet18Backbone(nn.Module):
         self.blocks_per_stage = blocks_per_stage
         self.conv1 = nn.Conv2d(in_channels, stem_channels, 7, stride=2,
                                padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(stem_channels, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm2d(stem_channels)
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)
         prev = stem_channels
         for i, ch in enumerate(stage_channels):
@@ -67,16 +93,22 @@ class ResNet18Backbone(nn.Module):
                                 BasicBlock(prev, ch, stride if b == 0 else 1))
                 prev = ch
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         """:param x: (B, H, W, 3) normalized images, channels-last
+        :param train: BatchNorm in train mode (batch statistics)
         :return: (tuple of node feature maps (B, H_f, W_f, C), one per tap;
                   edge map (B, H/32, W/32, C4); global feature (B, C4))"""
         y = x.permute(0, 3, 1, 2)
-        y = self.pool(torch.relu(self.bn1(self.conv1(y))))
+        if y.device.type == "cpu":
+            # NCHW in memory on the CPU: the CPU build's backward of a 1x1
+            # stride-2 convolution (the downsample) over a channels-last
+            # input corrupts the heap at narrow widths (8 -> 16 channels)
+            y = y.contiguous()
+        y = self.pool(torch.relu(self.bn1(self.conv1(y), train)))
         taps = {}
         for i in range(4):
             for b in range(self.blocks_per_stage):
-                y = getattr(self, f"layer{i + 1}_{b}")(y)
+                y = getattr(self, f"layer{i + 1}_{b}")(y, train)
             taps[f"layer{i + 1}"] = y
         edges = taps["layer4"]
         global_feat = edges.amax(dim=(2, 3))

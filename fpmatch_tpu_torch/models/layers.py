@@ -3,7 +3,9 @@ association-graph GNN layers, match classifier — batch-native nn.Modules on
 (B, N1, N2, C)-shaped association features.
 
 Parameter and child names equal the Flax modules' (the weight converter
-carries them across by name). Inference only.
+carries them across by name). BatchNorm takes its mode per call (`train`),
+as the Flax modules do; the embedded Sinkhorn is recomputed in the backward
+(`torch.utils.checkpoint`), as the Flax layers' `remat_sk` does.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.assoc import assoc_aggregate_mean
 from ..ops.sinkhorn import sinkhorn_batch
@@ -69,6 +72,16 @@ class InnerProductAffinity(nn.Module):
         return res
 
 
+def remat(fn, *args):
+    """fn(*args), recomputed in the backward instead of keeping its
+    intermediates (`jax.checkpoint`'s counterpart; the numbers are the
+    same) when a gradient is wanted; plain fn(*args) otherwise."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class AssocGNNLayerBatched(nn.Module):
     """One association-graph convolution whose sparse mean aggregation
     (K^T vec(X) / rownnz) is computed by the CALLER: the UNIV serving route
@@ -95,9 +108,12 @@ class AssocGNNLayerBatched(nn.Module):
         x1 = x1 + h
         if self.sk_channel:
             sk_in = self.classifier(x1)
-            chans = [sinkhorn_batch(sk_in[..., c].float(), n1, n2,
-                                    tau=self.sk_tau, max_iter=self.sk_iter,
-                                    dummy_row=True)
+
+            def sk_fn(x):
+                return sinkhorn_batch(x, n1, n2, tau=self.sk_tau,
+                                      max_iter=self.sk_iter, dummy_row=True)
+
+            chans = [remat(sk_fn, sk_in[..., c].float())
                      for c in range(self.sk_channel)]
             x1 = torch.cat([x1, torch.stack(chans, dim=-1).to(x1.dtype)],
                            dim=-1)
@@ -118,9 +134,12 @@ class AssocGNNLayer(AssocGNNLayerBatched):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (B, C, H, W) whose train-mode statistics would be
-    masked to the valid region. Inference only here: normalization by the
-    running statistics, which does not look at the mask."""
+    """BatchNorm over (B, C, H, W) whose train-mode statistics are computed
+    over the valid region only (`mask` (B, 1, H, W) in {0, 1}), so training
+    normalization does not depend on the padding bucket. `train=True`:
+    the biased masked statistics normalize and the running statistics move to
+    `0.9 old + 0.1 batch`; `train=False`: the running statistics, which do
+    not look at the mask."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -130,10 +149,19 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False):
         shp = (1, -1, 1, 1)
-        y = (x - self.running_mean.reshape(shp)) * torch.rsqrt(
-            self.running_var.reshape(shp) + self.eps)
+        if train:
+            cnt = torch.clamp(mask.sum(), min=1.0)
+            mean = (x * mask).sum(dim=(0, 2, 3)) / cnt
+            var = (torch.square(x - mean.reshape(shp)) * mask
+                   ).sum(dim=(0, 2, 3)) / cnt
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean.reshape(shp)) * torch.rsqrt(var.reshape(shp) + self.eps)
         return y * self.weight.reshape(shp) + self.bias.reshape(shp)
 
 
@@ -162,15 +190,16 @@ class MatchClassifier(nn.Module):
         vc = torch.ceil(n2 / d).to(torch.int32)[:, None, None]
         return ((rows < vr) & (cols < vc)).to(dtype)[:, None]
 
-    def forward(self, match_mat, n1, n2):
-        """match_mat: (B, S1, S2); n1, n2: (B,) valid counts -> (B,) logits."""
+    def forward(self, match_mat, n1, n2, train: bool = False):
+        """match_mat: (B, S1, S2); n1, n2: (B,) valid counts -> (B,) logits.
+        `train`: BatchNorm in train mode (masked batch statistics)."""
         x = match_mat[:, None]
         for i in range(len(self.channels)):
             x = torch.relu(getattr(self, f"conv{i}")(x))
             m = self._level_mask(x.shape[2], x.shape[3], i, n1, n2, x.dtype)
             # zero the invalid region: it would carry bias/BN constants whose
             # interaction with the conv's zero padding depends on the bucket
-            x = getattr(self, f"bn{i}")(x, m) * m
+            x = getattr(self, f"bn{i}")(x, m, train) * m
             x = nn.functional.max_pool2d(x, 2, stride=2)
         m = self._level_mask(x.shape[2], x.shape[3], len(self.channels), n1,
                              n2, x.dtype)

@@ -1,4 +1,4 @@
-"""The full neural-graph-matching network (inference).
+"""The full neural-graph-matching network (inference and training).
 
   ResNet-18 features -> bilinear alignment at keypoints -> spline-conv message
   passing per fingerprint graph -> global-gated node/edge affinities ->
@@ -9,11 +9,19 @@
 Everything is fixed-shape (N_MAX / E_MAX buckets) + per-sample counts; K is
 never materialized. Two routes of the association GNN are ported:
 
-  * default (bucket scale): `AssocGNNLayer` aggregates with the plain torch
-    ops of `ops.assoc`;
+  * default (bucket scale): `AssocGNNLayer` aggregates through
+    `ops.assoc.assoc_matvec_auto` (the CUDA kernels K2 / K3 on a CUDA device,
+    the plain torch ops on the CPU), which is differentiable: the one route
+    that trains;
   * `univ_plan` (UNIV-scale single-pair serving): the three aggregations go
     through `kernels.assoc_univ_v3.assoc_matvec_univ_v3` — the CUDA kernel on
-    a CUDA device — and feed `AssocGNNLayerBatched`.
+    a CUDA device — and feed `AssocGNNLayerBatched`. Inference only, as in
+    the JAX package, where no trainer reaches it.
+
+`forward(batch, train=...)` has the JAX model's meaning: `train` puts the
+soft top-k on the ground-truth k and, unless `bn_main` / `bn_cls` say
+otherwise, the backbone's and the match classifier's BatchNorm in train mode.
+Without `train` the forward runs under `torch.inference_mode()`.
 
 Options of the JAX model that are not ported yet raise NotImplementedError
 naming their ROADMAP.md item.
@@ -38,7 +46,7 @@ from ..ops.spline import edge_pseudo_coords
 from .afau import AFAUEncoder
 from .backbone import ResNet18Backbone
 from .layers import (AssocGNNLayer, AssocGNNLayerBatched,
-                     InnerProductAffinity, MatchClassifier, SplineNet)
+                     InnerProductAffinity, MatchClassifier, SplineNet, remat)
 
 
 class PairBatch(NamedTuple):
@@ -138,16 +146,35 @@ class NGMNet(nn.Module):
             cfg.data.norm_std, dtype=torch.float32), persistent=False)
         self.eval()
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise _waits("training (train-mode BatchNorm, losses, backward "
-                         "kernels)", "Queue A: training")
-        return super().train(False)
-
-    @torch.inference_mode()
-    def forward(self, batch: PairBatch,
+    def forward(self, batch: PairBatch, train: bool = False,
                 hungarian_mask: Optional[torch.Tensor] = None,
-                univ_plan=None) -> Dict[str, torch.Tensor]:
+                univ_plan=None, bn_main: Optional[bool] = None,
+                bn_cls: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """:param train: training forward: the soft top-k targets
+            `batch.gt_k`, and autograd records the graph of whatever requires
+            a gradient (the module's own `training` flag is not read)
+        :param bn_main / bn_cls: BatchNorm mode of the backbone / match
+            classifier, set independently of `train` (default: `train`);
+            the curriculum's frozen partitions keep theirs on the running
+            statistics
+        :param hungarian_mask: optional 0/1 (B, N, N) that ranks the greedy
+            fill (`hungarian_mask * ds_mat`)
+        :param univ_plan: the UNIV route's plan (inference only)"""
+        train = bool(train)
+        bn_main = train if bn_main is None else bool(bn_main)
+        bn_cls = train if bn_cls is None else bool(bn_cls)
+        plan = univ_plan if univ_plan is not None else self.univ_plan
+        if train and plan is not None:
+            raise ValueError("the UNIV route (univ_plan) is inference only")
+        if train or bn_main or bn_cls:
+            return self._forward(batch, train, hungarian_mask, plan, bn_main,
+                                 bn_cls)
+        with torch.inference_mode():
+            return self._forward(batch, False, hungarian_mask, plan, False,
+                                 False)
+
+    def _forward(self, batch: PairBatch, train: bool, hungarian_mask, plan,
+                 bn_main: bool, bn_cls: bool) -> Dict[str, torch.Tensor]:
         cfg = self.cfg.ngm
         if batch.row_plan is not None:
             raise _waits("the edge-sharded path (batch.row_plan)",
@@ -173,7 +200,8 @@ class NGMNet(nn.Module):
             imgs = (imgs.float() / 255.0 - self.norm_means) / self.norm_std
         elif C_in == 1:
             imgs = imgs.expand(-1, -1, -1, 3)
-        node_maps, edges_map, global_feat = self.backbone(imgs.float())
+        node_maps, edges_map, global_feat = self.backbone(imgs.float(),
+                                                          bn_main)
         node_maps = [normalize_over_channels(m.float()) for m in node_maps]
         edges_map = normalize_over_channels(edges_map.float())
         global_feat = global_feat.float()
@@ -218,7 +246,6 @@ class NGMNet(nn.Module):
         emb = Kp[..., None] if cfg.first_order else torch.ones(
             (B, N, N, 1), dtype=Kp.dtype, device=dev)
         kp_present = vmask.to(Kp.dtype)
-        plan = univ_plan if univ_plan is not None else self.univ_plan
         if plan is not None:
             # ---- UNIV-scale single-pair serving route ---------------------
             if B != 1:
@@ -247,24 +274,32 @@ class NGMNet(nn.Module):
 
         # ---- scores + Sinkhorn -------------------------------------------
         s = self.classifier(emb)[..., 0]                    # (B, N, N)
-        ss = sinkhorn_batch(s, n1, n2, tau=cfg.sk_tau, max_iter=cfg.sk_iter,
-                            dummy_row=True)
+        # the two Sinkhorn chains are recomputed in the backward when
+        # cfg.remat_sinkhorn (memory, not numbers), as the JAX model's
+        # jax.checkpoint
+        rm = remat if cfg.remat_sinkhorn else (lambda fn, *a: fn(*a))
+        ss = rm(lambda x: sinkhorn_batch(x, n1, n2, tau=cfg.sk_tau,
+                                         max_iter=cfg.sk_iter,
+                                         dummy_row=True), s)
 
         min_pts = torch.minimum(n1, n2).float()
         supervised_ks = batch.gt_k / torch.clamp(min_pts, min=1.0)
 
-        # ---- k prediction (AFA-U) ----------------------------------------
-        ks = self.afau(ss, n1, n2) if cfg.regression else supervised_ks
+        # ---- k prediction (AFA-U), on the detached Sinkhorn map ----------
+        ks = (self.afau(ss.detach(), n1, n2) if cfg.regression
+              else supervised_ks)
 
         # ---- soft top-k + discretization ---------------------------------
-        ss_out = soft_topk_batch(ss, ks * min_pts, n1, n2, tau=cfg.sk_tau,
-                                 max_iter=cfg.sk_iter,
-                                 extra_iter=cfg.topk_extra_iter)
+        topk_target = batch.gt_k if train else ks * min_pts
+        ss_out = rm(lambda x: soft_topk_batch(
+            x, topk_target, n1, n2, tau=cfg.sk_tau, max_iter=cfg.sk_iter,
+            extra_iter=cfg.topk_extra_iter), ss)
         rank = ss_out if hungarian_mask is None else hungarian_mask * ss_out
-        x_perm = greedy_perm_batch(rank, ks * min_pts, n1, n2)
+        x_perm = greedy_perm_batch(rank.detach(), ks.detach() * min_pts, n1,
+                                   n2).detach()
 
         # ---- match classification ----------------------------------------
-        cls_logits = self.match_cls(s * x_perm, n1, n2)
+        cls_logits = self.match_cls(s * x_perm, n1, n2, train=bn_cls)
         cls_prob = torch.sigmoid(cls_logits)
 
         # ---- auxiliary losses --------------------------------------------

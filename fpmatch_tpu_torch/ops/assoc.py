@@ -19,13 +19,16 @@ and scatter indices; padded edge slots alias node 0 and MUST carry Ke == 0.
 
 `assoc_matvec_auto` is where the device decides: CPU tensors take the plain
 ops of this module, CUDA tensors the hand-written kernels of
-`kernels.assoc_bucket` (or raise; they never give way to the plain ops).
+`kernels.assoc_bucket` (or raise; they never give way to the plain ops). It
+is differentiable: its backward runs the same dispatch with the roles swapped
+(dX) and `kernels.assoc_grad` (dKe, dKp), on the same device.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.assoc_bucket import assoc_matvec_bucket, assoc_matvec_large
+from ..kernels.assoc_grad import assoc_edge_grad
 
 
 def _batch_offsets(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -99,6 +102,70 @@ CHUNKED_NNZ_THRESHOLD = 1_000_000
 CHUNK_E1 = 256
 
 
+def _matvec_dispatch(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
+                     e1_mask, e2_mask):
+    """The forward of `assoc_matvec_auto` on the tensors as they are (no
+    autograd): the CUDA kernels for CUDA tensors, the plain ops for CPU
+    ones. Returns (Y, the kernel's name or None)."""
+    large = Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD
+    if X.device.type == "cuda":
+        kernel = assoc_matvec_large if large else assoc_matvec_bucket
+        return kernel(X, Kp, Ke, src1, dst1, src2, dst2, transpose=transpose,
+                      e1_mask=e1_mask, e2_mask=e2_mask), \
+            ("assoc_large" if large else "assoc_bucket")
+    if large:
+        return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
+                                    transpose=transpose, chunk=CHUNK_E1), None
+    return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
+                        transpose=transpose), None
+
+
+# launches of the forward kernels made by `_AssocMatvec.backward` (dX), per
+# kernel; the wrappers count every launch of theirs, these are the part of
+# those counts that the backward made
+BACKWARD_LAUNCHES = {"assoc_bucket": 0, "assoc_large": 0}
+
+
+class _AssocMatvec(torch.autograd.Function):
+    """Y = K(^T) vec X with its gradient. Forward: `_matvec_dispatch`.
+    Backward, for dY:
+
+      dX  = K(^T)^T vec dY: the same dispatch with `transpose` flipped (on a
+            CUDA tensor the same K2 / K3 kernel, `Kp * dY` fused);
+      dKe, dKp: `kernels.assoc_grad.assoc_edge_grad` (K6 on a CUDA tensor,
+            its plain version on a CPU one); dKe is 0 on masked slots.
+
+    The edge lists and masks get no gradient. float32 only."""
+
+    @staticmethod
+    def forward(ctx, X, Kp, Ke, src1, dst1, src2, dst2, transpose, e1_mask,
+                e2_mask):
+        ctx.transpose = transpose
+        ctx.save_for_backward(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask,
+                              e2_mask)
+        return _matvec_dispatch(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
+                                e1_mask, e2_mask)[0]
+
+    @staticmethod
+    def backward(ctx, dY):
+        X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask = \
+            ctx.saved_tensors
+        dY = dY.contiguous().float()
+        dX = dKp = dKe = None
+        if ctx.needs_input_grad[0]:
+            dX, kernel = _matvec_dispatch(dY, Kp, Ke, src1, dst1, src2, dst2,
+                                          not ctx.transpose, e1_mask,
+                                          e2_mask)
+            if kernel is not None:
+                BACKWARD_LAUNCHES[kernel] += 1
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dKe, dKp = assoc_edge_grad(dY, X, src1, dst1, src2, dst2,
+                                       ctx.transpose, e1_mask, e2_mask)
+            dKe = dKe if ctx.needs_input_grad[2] else None
+            dKp = dKp if ctx.needs_input_grad[1] else None
+        return dX, dKp, dKe, None, None, None, None, None, None, None
+
+
 def assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
                       transpose: bool = False, e1_mask=None, e2_mask=None):
     """Static-shape dispatch between the one-shot form (bucket scale) and
@@ -107,17 +174,22 @@ def assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
     `assoc_matvec_bucket` and `assoc_matvec_large`, which skip the edge
     slots that `e1_mask` / `e2_mask` (B, E) mark as padding; on a CPU tensor
     they are the plain ops above, for which padded slots are inert through
-    their Ke == 0."""
-    large = Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD
-    if X.device.type == "cuda":
-        kernel = assoc_matvec_large if large else assoc_matvec_bucket
-        return kernel(X, Kp, Ke, src1, dst1, src2, dst2, transpose=transpose,
-                      e1_mask=e1_mask, e2_mask=e2_mask)
-    if large:
-        return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
-                                    transpose=transpose, chunk=CHUNK_E1)
-    return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
-                        transpose=transpose)
+    their Ke == 0. Both are one `torch.autograd.Function` (`_AssocMatvec`),
+    whose backward runs on the same device: on a CUDA tensor the kernels
+    again (dX) and `kernels.assoc_grad` (dKe, dKp). Gradients are float32
+    only: a bfloat16 X that asks for one raises."""
+    wants_grad = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in (X, Kp, Ke))
+    if not wants_grad:
+        return _matvec_dispatch(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
+                                e1_mask, e2_mask)[0]
+    if X.dtype != torch.float32:
+        raise NotImplementedError(
+            "gradients of the association matvec with bfloat16 X are not "
+            "ported to fpmatch_tpu_torch yet (ROADMAP.md, Queue A: --bf16 "
+            "mixed precision)")
+    return _AssocMatvec.apply(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
+                              e1_mask, e2_mask)
 
 
 def assoc_degree(Kp_present: torch.Tensor, e1_mask, e2_mask,

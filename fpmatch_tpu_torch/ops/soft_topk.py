@@ -18,9 +18,20 @@ import torch
 from .masking import NEG_INF, masked_max, masked_min, rect_mask
 
 
+def _logsumexp2(log_s):
+    """logsumexp over the last axis, -inf where every entry is -inf, with a
+    finite gradient there (torch.logsumexp's backward gives 0 * nan at an
+    all -inf row); the same arithmetic as torch.logsumexp elsewhere."""
+    m = torch.amax(log_s, dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    s = torch.sum(torch.exp(log_s - m_safe), dim=-1, keepdim=True)
+    return torch.where(s > 0, torch.log(torch.clamp(s, min=1e-38)) + m_safe,
+                       NEG_INF)
+
+
 def _row_norm(log_s, valid):
     """Normalize over the 2 anchor channels of each valid score."""
-    log_sum = torch.logsumexp(log_s, dim=-1, keepdim=True)
+    log_sum = _logsumexp2(log_s)
     out = log_s - torch.where(torch.isfinite(log_sum), log_sum, 0.0)
     out = torch.where(torch.isnan(out), NEG_INF, out)
     return torch.where(valid[..., None], out, NEG_INF)

@@ -1,14 +1,17 @@
 """Checkpoints in the port's own format: `torch.save(state_dict)` at
-`<dir>/<name>.pt` plus the `checkpoint.json` sidecar (`latest`, curriculum
-metadata) that the JAX package's `train/checkpoints.py` keeps. Importing an
-orbax checkpoint is not ported yet (ROADMAP.md, Queue A: checkpoints import);
-weights cross over through `convert.from_flax_variables`.
+`<dir>/<name>.pt`, the optimizer's state (when a `train.state.TrainState` is
+saved) at `<dir>/<name>.opt.pt`, plus the `checkpoint.json` sidecar
+(`latest`, curriculum metadata) that the JAX package's
+`train/checkpoints.py` keeps. `warm_start` is its shape-tolerant load.
+Importing an orbax checkpoint is not ported yet (ROADMAP.md, Queue A:
+checkpoints import); weights cross over through
+`convert.from_flax_variables`.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 def _path(ckpt_dir: str, name: str) -> str:
@@ -18,15 +21,23 @@ def _path(ckpt_dir: str, name: str) -> str:
 def save_checkpoint(ckpt_dir: str, name: str, model_or_state_dict,
                     extra: Optional[Dict] = None) -> str:
     """Save a model's (or a given) state_dict under `ckpt_dir/name.pt` and
-    record it as `latest` in the JSON sidecar. Returns the file path."""
+    record it as `latest` in the JSON sidecar. A TrainState saves its
+    model's weights there and its optimizer's state (with the step) in
+    `ckpt_dir/name.opt.pt`. Returns the weights' file path."""
     import torch
 
     sd = model_or_state_dict
+    opt = None
+    if hasattr(sd, "optimizer"):
+        opt = {"optimizer": sd.optimizer.state_dict(), "step": sd.step}
+        sd = sd.model
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     os.makedirs(os.path.abspath(ckpt_dir), exist_ok=True)
     path = _path(ckpt_dir, name)
     torch.save({k: v.detach().cpu() for k, v in sd.items()}, path)
+    if opt is not None:
+        torch.save(opt, _path(ckpt_dir, name + ".opt"))
     meta = read_meta(ckpt_dir)
     meta["latest"] = name
     if extra:
@@ -43,6 +54,32 @@ def restore_params(ckpt_dir: str, name: str) -> Dict:
 
     return torch.load(_path(ckpt_dir, name), map_location="cpu",
                       weights_only=True)
+
+
+def restore_state(ckpt_dir: str, name: str, state) -> None:
+    """Load `name`'s weights and optimizer state into a TrainState (resume
+    of the same stage)."""
+    import torch
+
+    state.model.load_state_dict(restore_params(ckpt_dir, name))
+    opt = torch.load(_path(ckpt_dir, name + ".opt"), map_location="cpu",
+                     weights_only=True)
+    state.optimizer.load_state_dict(opt["optimizer"])
+    state.step = int(opt["step"])
+
+
+def warm_start(state_dict: Dict, restored: Dict) -> Tuple[Dict, int]:
+    """Copy restored tensors into `state_dict` wherever name and shape match
+    (the shape-tolerant load of the JAX package's `warm_start`, which lets
+    the architecture change between runs). Returns (new state_dict, number
+    of tensors restored)."""
+    out, kept = dict(state_dict), 0
+    for k, v in state_dict.items():
+        r = restored.get(k)
+        if r is not None and tuple(r.shape) == tuple(v.shape):
+            out[k] = r.to(dtype=v.dtype, device=v.device)
+            kept += 1
+    return out, kept
 
 
 def read_meta(ckpt_dir: str) -> Dict:

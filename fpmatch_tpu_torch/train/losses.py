@@ -1,6 +1,7 @@
 """Masked loss functions: the part of the JAX package's `train/losses.py`
-that evaluation runs (`permutation_loss`, forward only). The other losses
-belong to training and are not ported yet (ROADMAP.md, Queue A: training).
+that its training and evaluation paths run (`permutation_loss`). The other
+losses, which no JAX path calls, are not ported yet (ROADMAP.md, Queue A:
+training).
 
 Losses take padded (B, S1, S2) matrices + per-sample valid counts: summed
 over valid cells, normalized by the summed source-node counts.

@@ -1,13 +1,18 @@
-"""Eval steps with stage-conditional loss composition: the inference half of
-the JAX package's `train/step.py`, as plain functions under
-`torch.inference_mode()` (no jit, no state object: the model carries its
-weights).
+"""Train and eval steps with stage-conditional loss composition: the JAX
+package's `train/step.py` as plain functions (no jit: the model carries its
+weights, `train.state.TrainState` the optimizer).
 
   stage 6       -> cls only
   stages 4, 5   -> ks + cls
   otherwise     -> perm + ks + cls
-through the StageConfig.loss_{perm,ks,cls} flags. The train step is not
-ported yet (ROADMAP.md, Queue A: training).
+through the StageConfig.loss_{perm,ks,cls} flags.
+
+The train step differentiates only the stage's live partitions (the others
+get `requires_grad=False` from `train.state.make_optimizer`): in the k-only
+and cls-only stages 2, 4 and 6 no backward runs through the backbone or the
+association GNN, so the backward kernels of `ops.assoc` run in stages 1, 3
+and 5 only. With `cfg.train.bn_follows_trainability` the frozen partitions'
+BatchNorm stays on its running statistics.
 
 The JAX package binds a UNIV plan to its model; here the model takes the plan
 per call, so every step carries `univ_plan` down to the forward. A step built
@@ -15,12 +20,15 @@ without it sends a UNIV request's aggregations down the bucket route.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..core.config import StageConfig
 from ..evaluation.metrics import matching_accuracy
 from ..models.ngm import NGMNet, PairBatch
 from .losses import permutation_loss
+from .state import TrainState, clip_by_global_norm_
 
 EVAL_OUTPUTS = ("cls_prob", "k_prob", "perm_mat", "ds_mat")
 
@@ -32,13 +40,13 @@ def loss_and_metrics(model: NGMNet, batch: PairBatch, stage: StageConfig,
     `univ_plan` (a `kernels.assoc_univ_v3` plan, B == 1) routes the
     aggregations through the UNIV kernel, as `NGMNet.forward`'s does.
     """
-    if train:
-        raise NotImplementedError(
-            "the train step (train-mode BatchNorm, backward kernels) is not "
-            "ported to fpmatch_tpu_torch yet (ROADMAP.md, Queue A: training)")
-    with torch.inference_mode():
-        out = model(batch, hungarian_mask=hungarian_mask,
-                    univ_plan=univ_plan)
+    bn_kw = {}
+    if train and model.cfg.train.bn_follows_trainability:
+        # frozen partitions keep their BatchNorm on the running statistics
+        bn_kw = dict(bn_main=stage.train_main, bn_cls=stage.train_cls)
+    with contextlib.nullcontext() if train else torch.inference_mode():
+        out = model(batch, train=train, hungarian_mask=hungarian_mask,
+                    univ_plan=univ_plan, **bn_kw)
         n1 = batch.n_nodes[:, 0]
         n2 = batch.n_nodes[:, 1]
         perm_loss = permutation_loss(out["ds_mat"], batch.gt_perm, n1, n2)
@@ -60,6 +68,30 @@ def loss_and_metrics(model: NGMNet, batch: PairBatch, stage: StageConfig,
         "accuracy": acc,
     }
     return total, (metrics, out)
+
+
+def make_train_step(model: NGMNet, stage: StageConfig):
+    """train_step(state, batch) -> (state, metrics): one forward in train
+    mode, the backward of the stage's loss through its live partitions,
+    optax-style global-norm clipping (`stage.grad_clip`) and one AdamW step
+    of `state.optimizer` (made for this stage by `train.state.create_state`,
+    which also set which parameters require a gradient). Metrics are
+    detached tensors on the batch's device."""
+
+    def train_step(state: TrainState, batch: PairBatch):
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        total, (metrics, _) = loss_and_metrics(model, batch, stage,
+                                               train=True)
+        total.backward()
+        if stage.grad_clip is not None:
+            clip_by_global_norm_([p for g in opt.param_groups
+                                  for p in g["params"]], stage.grad_clip)
+        opt.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 def make_eval_step(model: NGMNet, stage: StageConfig, univ_plan=None):

@@ -324,18 +324,26 @@ def test_loader_device_cache_and_hook(tmp_path):
 
 
 def test_parts_that_wait_for_training_raise(tmp_path):
-    _, tb = _benches(tmp_path, "test", "classify")
+    """Training is ported: a train split now yields augmented pairs (seeded
+    per index and epoch) and `loss_and_metrics(train=True)` runs with a
+    gradient; cli.evaluate's `--augment` still waits (see
+    test_cli_evaluate_options_that_wait_raise)."""
     _, tcfg = _shape_cfgs()
-    with pytest.raises(NotImplementedError, match="Queue A: training"):
-        t_pipeline.PairDataset(tb, tcfg, augment=True)
     tb_train = t_benchmark.make_benchmark(
         "PolyUDBII", "train", root=str(FIXTURE), task="classify",
         output_dir=str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError, match="Queue A: training"):
-        t_pipeline.PairDataset(tb_train, tcfg)    # a train split augments
-    with pytest.raises(NotImplementedError, match="Queue A: training"):
-        t_step.loss_and_metrics(None, None, t_default_stages()[-1],
-                                train=True)
+    pd = t_pipeline.PairDataset(tb_train, tcfg)    # a train split augments
+    assert pd.augment
+    s0, s1 = pd.get(0, epoch=0), pd.get(0, epoch=1)
+    assert not np.array_equal(s0.images[0], s1.images[0])
+    batch = t_pipeline.collate([s0, pd.get(len(pd) - 1)], tcfg)
+    net = build_model(tcfg, device="cpu", seed=0)
+    stage = t_default_stages()[0]
+    total, (metrics, _) = t_step.loss_and_metrics(
+        net, batch.to("cpu"), stage, train=True)
+    assert total.requires_grad and np.isfinite(float(total))
+    assert set(metrics) == {"loss", "total_loss", "ks_loss", "ks_error",
+                            "cls_loss", "accuracy"}
 
 
 # ------------------------------------------------------------- the eval step

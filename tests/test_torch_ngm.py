@@ -335,8 +335,10 @@ def test_ngm_options_that_wait_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NGMNet(bad)
     net = NGMNet(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.train()
+    assert not net.training
+    net.train()                         # train mode works (training ported)
+    assert net.training and net.backbone.training
+    net.eval()
     assert not net.training
 
 
