@@ -88,6 +88,27 @@ Phases (each prints its own lines; any failure exits non-zero):
               pairs/s, losses, K2 forward / backward and K6 launches (K6 and
               the K2 backward in stages 1, 3, 5 only); the checkpoints load
               back; then `--smoke` once
+ 18. bf16 bwd K6 on bf16 X and the K2 / K3 dX launch on bf16(dY) against
+              their plain versions at B=8 / N=64 / E=384 (C=1 / 17, both
+              orientations) and B=2 / N=256 (one bf16 ulp of each rounded
+              entry, 1e-5 of the range for the f32 sums; bit-identical over
+              two launches), the Function on the card against its CPU run;
+              times, bounds with bf16 bytes for X, the library call
+              (torch.sparse.sampled_addmm over K's CSR pattern, as in
+              phase 15; its bf16 call tried)
+ 19. serve    --bf16: phase 4's and 6's requests (K1 / K2 on bf16
+              features), wall ms beside the f32 ones, one request of each
+              route against the CPU in bf16, cli.match.main --bf16 once
+ 20. evaluate --bf16 over phase 7's split (K2) and phase 9's (K3), pairs/s
+              beside the f32 runs
+ 21. train    one --bf16 train step of stage 1 against the CPU (loss terms,
+              per-partition gradient cosines, finite gradients), then
+              cli.train --bf16 through stages 1 and 2, 4 steps each, beside
+              phase 17's f32 stages; every K1 / K2 / K3 / K6 launch of
+              phases 19-21 on bf16 X
+
+Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
+X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
 
 Weights are initialised from a seed (the detector's are the trained ones of
 results/poredet/net17nomax.npz), images and keypoints are made from a seed;
@@ -916,10 +937,10 @@ def phase_kernels_univ():
 
 
 # ------------------------------------------------------------------- serving
-def cli_config(n_max, e_max, univ):
+def cli_config(n_max, e_max, univ, *flags):
     args = build_parser().parse_args(
         ["a", "b", "--n-max", str(n_max), "--e-max", str(e_max), "--univ",
-         str(univ)])
+         str(univ), *flags])
     return model_config_from_args(args)
 
 
@@ -1107,14 +1128,15 @@ def phase_serve_bucket():
         fail("the bucket route must launch assoc_bucket 3 times per request")
     say(f"[6 serve bucket] wall ms per request: "
         f"{[round(t * 1e3, 1) for t in times]}")
+    return times
 
 
 # ---------------------------------------------------------------- evaluation
-def eval_config(batch_size, n_max, e_max):
+def eval_config(batch_size, n_max, e_max, *flags):
     """The Config `cli.evaluate` builds from its flags."""
     args = cli_evaluate.build_parser().parse_args(
         ["--batch-size", str(batch_size), "--n-max", str(n_max), "--e-max",
-         str(e_max)])
+         str(e_max), *flags])
     cfg = model_config_from_args(args)
     return dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, batch_size=batch_size))
@@ -1304,7 +1326,7 @@ def phase_evaluate_large(root, index_dir):
     sample = pd.get(0)
     say(f"[9 evaluate large] keypoints of the first pair: "
         f"{[len(p) for p in sample.points]}")
-    return launches
+    return launches, res
 
 
 # ------------------------------------------------------------------ 10 tune
@@ -1840,11 +1862,67 @@ def grad_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed):
             dX_ms=time_ms(lambda: kern(dY, Kp, Ke, *edges,
                                        transpose=not transpose, **masks),
                           flush=flush),
-            # no single PyTorch call computes dKe (a sampled product)
-            library_ms=None, bytes=nbytes, flops=flops,
-            bound_ms=max(t_bytes, t_ops),
+            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r.update(sddmm_library(dY, X, edges, transpose, n_e, want, flush))
     return r
+
+
+def sddmm_library(dY, X, edges, transpose, n_e, want, flush):
+    """K6's library call: dKe and dKp are dY_flat @ X_flat^T (both
+    (B·N1·N2, C)) sampled at K's nonzero pattern, the real (out1, out2) x
+    (in1, in2) edge entries and the diagonal: one
+    `torch.sparse.sampled_addmm` (cuSPARSE's SDDMM) over that pattern as a
+    CSR matrix built here, outside the timing, as `sparse_library` builds K
+    for the forward. Held against the plain version `want` (f32; bf16 X
+    widened: the library has no bf16 rounding of the products) at 1e-5 of
+    the range, then timed. A bf16 call (dY and X in bf16) is tried once:
+    its time, or why cuSPARSE refused it."""
+    B, N1, N2, C = X.shape
+    M = B * N1 * N2
+    out1, in1, out2, in2 = k6._roles(*edges, transpose)
+    n_e = torch.as_tensor(np.asarray(n_e), device=DEV)
+    keep = ((torch.arange(out1.shape[1], device=DEV)[None, :, None]
+             < n_e[:, 0, None, None])
+            & (torch.arange(out2.shape[1], device=DEV)[None, None, :]
+               < n_e[:, 1, None, None]))
+    base = torch.arange(B, device=DEV)[:, None, None] * (N1 * N2)
+    at = lambda a, b: base + a.long()[:, :, None] * N2 + b.long()[:, None, :]
+    rows, cols = at(out1, out2), at(in1, in2)
+    diag = torch.arange(M, device=DEV)
+    idx = torch.stack([torch.cat([rows[keep], diag]),
+                       torch.cat([cols[keep], diag])])
+    P = torch.sparse_coo_tensor(idx, torch.ones(idx.shape[1], device=DEV),
+                                (M, M), check_invariants=False).coalesce()
+    lin = P.indices()[0] * M + P.indices()[1]          # sorted, row-major
+    P = P.to_sparse_csr()
+    pos_e = torch.searchsorted(lin, (rows * M + cols)[keep])
+    pos_d = torch.searchsorted(lin, diag * M + diag)
+    Yf = dY.reshape(M, C)
+    Xf = X.float().reshape(M, C)
+    call = lambda: torch.sparse.sampled_addmm(P, Yf, Xf.t(), beta=0.0)
+    vals = call().values()
+    torch.cuda.synchronize()
+    err = max(relerr(vals[pos_e], want[0][keep]),
+              relerr(vals[pos_d], want[1].reshape(-1)))
+    if not err <= 1e-5:
+        fail(f"sampled_addmm disagrees with assoc_edge_grad's plain version:"
+             f" {err:.3e}")
+    out = {"library": "torch.sparse.sampled_addmm (f32, K's CSR pattern)",
+           "library_err_vs_plain": err, "library_nnz": int(lin.numel()),
+           "library_ms": time_ms(call, reps=10, flush=flush)}
+    try:
+        Pb, Yb, Xb = P.to(torch.bfloat16), Yf.bfloat16(), Xf.bfloat16()
+        torch.sparse.sampled_addmm(Pb, Yb, Xb.t(), beta=0.0)
+        torch.cuda.synchronize()
+        out["library_bf16_ms"] = time_ms(
+            lambda: torch.sparse.sampled_addmm(Pb, Yb, Xb.t(), beta=0.0),
+            reps=10, flush=flush)
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        # what the library offers is reported, not worked around
+        out["library_bf16_ms"] = None
+        out["library_bf16_refused"] = str(e).splitlines()[0][:200]
+    return out
 
 
 def phase_backward_kernels():
@@ -1865,18 +1943,154 @@ def phase_backward_kernels():
     return rows
 
 
+# ------------------------------------------ 18 the bf16 backward kernels
+def ulps_off(got, want):
+    """Entries of `got` further from `want` than one bf16 ulp of `want`
+    (the spacing of bf16 at |want|) plus 1e-5 of want's range: both are f32
+    sums taken in another order (within 1e-5 of the range) that are then
+    rounded to bf16, which moves a result by at most one ulp more."""
+    want = want.float()
+    mag = want.abs().clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    lim = ulp + 1e-5 * float(want.abs().max())
+    return int(((got.float() - want).abs() > lim).sum())
+
+
+def grad_case_bf16(rng, B, N, E, C, n_lo, n_hi, transpose, flush):
+    """The backward of the association matvec on bf16 X, on the card
+    against the plain versions on the same inputs: K6's bf16 instantiation
+    (`assoc_edge_grad` on bf16 X) and the K2 / K3 launch on X' = bf16(dY)
+    with the roles swapped and Kp = 0 that makes dX, then the whole
+    `ops.assoc` Function (its dX in bf16) against the same Function on a CPU
+    copy (plain versions). Limits: dKe and the Function's dX and dKe within
+    one bf16 ulp of each entry (they are rounded to bf16 after an f32 sum
+    in another order); the f32 sums before that rounding, dKp and the K2 /
+    K3 launch, within 1e-5 of the range; K6 and the dX launch bit-identical
+    over two launches. Timed: K6, its plain version, the dX launch, the
+    library call; bound with bf16 bytes for X."""
+    X, Kp, Ke, s1, d1, s2, d2, m1, m2, n_e = bucket_inputs(
+        rng, B, N, E, C, n_lo, n_hi)
+    Xb = X.bfloat16()
+    g = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 30)))
+    dY = torch.randn(X.shape, device=DEV, generator=g)
+    edges = (s1, d1, s2, d2)
+    masks = dict(e1_mask=m1, e2_mask=m2)
+    em = m1[:, :, None] & m2[:, None, :]
+    got = k6.assoc_edge_grad(dY, Xb, *edges, transpose=transpose, **masks)
+    again = k6.assoc_edge_grad(dY, Xb, *edges, transpose=transpose, **masks)
+    want = k6.assoc_edge_grad_plain(dY, Xb, *edges, transpose=transpose,
+                                    **masks)
+    large = E * E >= CHUNKED_NNZ_THRESHOLD
+    kern = k23.assoc_matvec_large if large else k23.assoc_matvec_bucket
+    zero = torch.zeros_like(Kp)
+    dx_call = lambda: kern(dY.bfloat16(), zero, Ke, *edges,
+                           transpose=not transpose, **masks)
+    dX, dX_again = dx_call(), dx_call()
+    dX_plain = assoc_matvec(dY.bfloat16(), zero, Ke, *edges,
+                            transpose=not transpose)
+    cards = [Xb.clone().requires_grad_(), Kp.clone().requires_grad_(),
+             Ke.clone().requires_grad_()]
+    cpus = [t.detach().cpu().requires_grad_() for t in cards]
+    torch.autograd.backward(ops_assoc.assoc_matvec_auto(
+        *cards, *edges, transpose=transpose, **masks), dY)
+    torch.autograd.backward(ops_assoc.assoc_matvec_auto(
+        *cpus, *(t.cpu() for t in edges), transpose=transpose,
+        **{k: v.cpu() for k, v in masks.items()}), dY.cpu())
+    torch.cuda.synchronize()
+    fdX, fdKp, fdKe = (t.grad for t in cards)
+    cdX, cdKp, cdKe = (t.grad.to(DEV) for t in cpus)
+    r = {"kernel": "assoc_grad", "x_dtype": "bfloat16", "B": B, "N": N,
+         "E": E, "C": C, "transpose": transpose,
+         "dX_kernel": "assoc_large" if large else "assoc_bucket",
+         "assoc_edges": float((n_e[:, 0] * n_e[:, 1]).sum()),
+         "dKe_ulps_off": ulps_off(got[0], want[0]),
+         "dKe_bf16_representable": bool(torch.equal(
+             got[0].bfloat16().float(), got[0])),
+         "dKp_err_vs_plain": relerr(got[1], want[1]),
+         "err_vs_plain": max(relerr(got[0], want[0]),
+                             relerr(got[1], want[1])),
+         "max_abs_err": max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+         "dX_err_vs_plain": relerr(dX, dX_plain),
+         "fn_dX_dtype": str(fdX.dtype),
+         "fn_dX_ulps_off": ulps_off(fdX, cdX),
+         "fn_dKe_ulps_off": ulps_off(fdKe[em], cdKe[em]),
+         "fn_dKp_err": relerr(fdKp, cdKp),
+         "fn_dKe_padded_zero": bool((fdKe[~em] == 0).all()),
+         "bit_reproducible": all(torch.equal(a, b)
+                                 for a, b in zip(got, again))
+         and torch.equal(dX, dX_again)}
+    for k in ("dKp_err_vs_plain", "dX_err_vs_plain", "fn_dKp_err"):
+        if not r[k] <= 1e-5:
+            fail(f"bf16 backward {k} = {r[k]:.3e} > 1e-5 at {r}")
+    for k in ("dKe_ulps_off", "fn_dX_ulps_off", "fn_dKe_ulps_off"):
+        if r[k] != 0:
+            fail(f"bf16 backward: {k} = {r[k]} entries beyond one bf16 ulp "
+                 f"at {r}")
+    if not (r["bit_reproducible"] and r["fn_dKe_padded_zero"]
+            and r["dKe_bf16_representable"]
+            and r["fn_dX_dtype"] == "torch.bfloat16"):
+        fail(f"bf16 backward: not bit-identical, padded dKe != 0, dKe not "
+             f"bf16 values or dX not bf16: {r}")
+    # least work for THIS input: dY (f32) and X (bf16) read once, the edge
+    # lists and masks once, dKe and dKp (f32) written once
+    nbytes = (4 * B * N * N * C + 2 * B * N * N * C + 4 * B * E * E
+              + 4 * B * N * N + 4 * 4 * B * E + 2 * B * E)
+    flops = 2.0 * C * r["assoc_edges"] + 2.0 * B * N * N * C
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    r.update(
+        ms=time_ms(lambda: k6.assoc_edge_grad(dY, Xb, *edges,
+                                              transpose=transpose, **masks),
+                   flush=flush),
+        plain_ms=time_ms(lambda: k6.assoc_edge_grad_plain(
+            dY, Xb, *edges, transpose=transpose, **masks), reps=5,
+            flush=flush),
+        dX_ms=time_ms(dx_call, flush=flush),
+        bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
+    plain_f32 = k6.assoc_edge_grad_plain(dY, Xb.float(), *edges,
+                                         transpose=transpose, **masks)
+    r.update(sddmm_library(dY, Xb, edges, transpose, n_e, plain_f32, flush))
+    return r
+
+
+def phase_backward_bf16():
+    """Phase 18: the bf16 backward kernels at the training shapes (B=8,
+    N=64, E=384; C=1 / 17, both orientations) and at B=2, N=256, E=1536
+    (C=17, the dX through K3)."""
+    rng = np.random.default_rng(SEED + 18)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
+    saved = read_counts()
+    rows = []
+    for C in (1, 17):
+        for transpose in (True, False):
+            rows.append(grad_case_bf16(rng, 8, 64, 384, C, 40, 64,
+                                       transpose, flush))
+    rows.append(grad_case_bf16(rng, 2, 256, 1536, 17, 200, 256, True, flush))
+    for r in rows:
+        say("[18 backward bf16] " + json.dumps(r))
+    restore_counts(saved)
+    del flush
+    return rows
+
+
 # --------------------------------------- 16 one train step: card against CPU
 class GreedyTap:
     """Wraps models.ngm.greedy_perm_batch while installed: records what it
     returns (`record`), or returns the recorded picks after checking that it
-    keeps as many matches (`replay`). The greedy ranks a near-uniform map at
-    random init, where ties at the 1e-6 level decide a pick; replaying the
-    card's picks on the CPU keeps the comparison on the arithmetic."""
+    keeps as many matches (`replay`; with `same_count=False` the difference
+    in the number of matches is only recorded). The greedy ranks a
+    near-uniform map at random init, where ties at the 1e-6 level decide a
+    pick; replaying the card's picks on the CPU keeps the comparison on the
+    arithmetic."""
 
-    def __init__(self):
+    def __init__(self, same_count=True):
         self.real = t_ngm.greedy_perm_batch
         self.picks = []
         self.mode = None
+        self.same_count = same_count
+        self.count_diffs = []
 
     def __call__(self, rank, ks, n1, n2):
         got = self.real(rank, ks, n1, n2)
@@ -1884,7 +2098,9 @@ class GreedyTap:
             self.picks.append(got.cpu())
             return got
         want = self.picks.pop(0)
-        if not torch.equal(got.sum((1, 2)).cpu(), want.sum((1, 2))):
+        diff = (got.sum((1, 2)).cpu() - want.sum((1, 2))).tolist()
+        self.count_diffs.append(diff)
+        if self.same_count and any(diff):
             fail("16 train parity: the CPU keeps another number of matches")
         return want.to(got.device)
 
@@ -2138,6 +2354,297 @@ def phase_train(tmp):
     return runs, smoke
 
 
+# ------------------------------------------------- 19-21 --bf16 end to end
+class DtypeTap:
+    """While installed, records the dtype of X at every launch of K1, K2,
+    K3 and K6 (their launch functions, wrapped; the wrappers' own counts
+    are untouched): proof that a bf16 run launched the bf16 instantiations
+    and no f32 one."""
+
+    SITES = ((k1, "_launch", "assoc_univ_v3"),
+             (k23, "_launch_bucket", "assoc_bucket"),
+             (k23, "_launch_large", "assoc_large"),
+             (k6, "_launch", "assoc_grad"))
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        self.real = []
+        for mod, fn, name in self.SITES:
+            real = getattr(mod, fn)
+            self.real.append((mod, fn, real))
+            x_arg = 1 if name == "assoc_grad" else 0   # K6 takes (dY, X, ...)
+
+            def tap(*a, real=real, name=name, x_arg=x_arg, **k):
+                self.seen.setdefault(name, set()).add(str(a[x_arg].dtype))
+                return real(*a, **k)
+            setattr(mod, fn, tap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, real in self.real:
+            setattr(mod, fn, real)
+
+    def only_bf16(self, tag):
+        bad = {k: v for k, v in self.seen.items() if v != {"torch.bfloat16"}}
+        if bad or not self.seen:
+            fail(f"{tag}: kernels launched on other than bf16 X: {self.seen}")
+        return {k: sorted(v) for k, v in self.seen.items()}
+
+
+def bf16_vs_cpu(tag, model, model32, cfg, req):
+    """One --bf16 request on the card (TF32 off) against the port's CPU run
+    of it in bf16. Kp is held within 2**-6 of its range (bf16 operands that
+    the card's and the CPU's convolutions and matmuls round after sums in
+    another order, through a 768-wide product); the distance of the card's
+    f32 Kp (same weights) is printed beside it, and what the three embedded
+    Sinkhorns at tau = 0.01 amplify downstream is reported. That the card
+    ran bf16 is shown by the X dtypes of its kernel launches (DtypeTap)."""
+    saved = read_counts()
+    with tf32_off():
+        _, out_g = match_arrays(model, *req, return_outputs=True)
+        _, out_32 = match_arrays(model32, *req, return_outputs=True)
+        torch.cuda.synchronize()
+    t = time.time()
+    _, out_c = match_arrays(cpu_copy(model, cfg), *req, return_outputs=True)
+    cpu_s = time.time() - t
+    restore_counts(saved)
+    errs = {k: {"max_abs": float((out_g[k].cpu().float()
+                                  - out_c[k].float()).abs().max()),
+                "ref_max": float(out_c[k].abs().max())}
+            for k in ("Kp", "raw_scores", "sinkhorn", "ds_mat", "cls_prob",
+                      "k_prob")}
+    kp32 = float((out_32["Kp"].cpu() - out_c["Kp"]).abs().max())
+    agree = float((out_g["perm_mat"].cpu() == out_c["perm_mat"]).all(
+        dim=2).float().mean())
+    row = {"errs": errs, "Kp_f32_card_vs_bf16_cpu": kp32,
+           "perm_rows_identical": agree, "cpu_s": cpu_s}
+    say(f"[{tag}] gpu bf16 vs cpu bf16: {json.dumps(row)}")
+    if not errs["Kp"]["max_abs"] <= 2.0 ** -6 * errs["Kp"]["ref_max"]:
+        fail(f"{tag}: Kp differs from the CPU's bf16 run: {errs['Kp']}")
+    return row
+
+
+def phase_serve_bf16(tmp, t_univ32, t_bucket32):
+    """Phase 19: `cli.match --bf16` at full width, the weights of phases 4
+    and 6 (seed 0) and their requests: 4 UNIV requests (K1 on bf16
+    features, 3 launches each), 3 bucket requests (K2 bf16, 3 each), wall ms
+    beside the f32 ones of this call; one request of each route against the
+    CPU in bf16; then `cli.match.main` with `--bf16` once."""
+    out = {}
+    routes = (("univ", (600, 3840, 600), SEED + 1, "assoc_univ_v3",
+               t_univ32),
+              ("bucket", (64, 384, 600), SEED + 2, "assoc_bucket",
+               t_bucket32))
+    for route, shape, seed, kernel, t32 in routes:
+        tag = f"19 serve bf16 {route}"
+        cfg = cli_config(*shape, "--bf16")
+        if (cfg.backbone.dtype, cfg.ngm.compute_dtype) != ("bfloat16",) * 2:
+            fail(f"{tag}: --bf16 did not reach the config")
+        model = build_model(cfg, device="cuda", seed=SEED)
+        rng = np.random.default_rng(seed)
+        if route == "univ":
+            requests = [("genuine (first request, includes warm-up)",
+                         make_request(rng, "genuine", 540, 600)),
+                        ("genuine", make_request(rng, "genuine", 540, 600)),
+                        ("impostor", make_request(rng, "impostor", 500, 600)),
+                        ("ragged n1!=n2",
+                         make_request(rng, "ragged", 580, 600))]
+        else:
+            requests = [(k, make_request(rng, k, 40, 60))
+                        for k in ("genuine", "impostor", "ragged")]
+        reset_counts()
+        with DtypeTap() as tap:
+            times = serve(tag, model, requests)
+        launches = read_counts()
+        want = {k: 0 for k in launches}
+        want[kernel] = 3 * len(requests)
+        say(f"[{tag}] kernel launches: {launches}; X dtypes "
+            f"{tap.only_bf16(tag)}")
+        if launches != want:
+            fail(f"{tag}: expected {want}")
+        say(f"[{tag}] wall ms per request, bf16 {[round(t * 1e3, 1) for t in times]}"
+            f" beside f32 (phase {4 if route == 'univ' else 6}) "
+            f"{[round(t * 1e3, 1) for t in t32]}")
+        model32 = build_model(cli_config(*shape), device="cuda", seed=SEED)
+        parity = bf16_vs_cpu(tag, model, model32, cfg,
+                             requests[1 if route == "univ" else 0][1])
+        out[route] = {"ms_bf16": [t * 1e3 for t in times],
+                      "ms_f32": [t * 1e3 for t in t32], "launches": launches,
+                      "parity": parity}
+        del model32
+        if route == "univ":
+            umodel = model
+        else:
+            del model
+    # the entry point with --bf16 on a bare-image pair (DPF, UNIV route)
+    pairs = write_bare_pairs(tmp)
+    argv = [pairs[0][1], pairs[0][2], "--n-max", "600", "--e-max", "3840",
+            "--univ", "600", "--checkpoint-dir", f"{tmp}/no_checkpoint",
+            "--bf16"]
+    buf = io.StringIO()
+    reset_counts()
+    t = time.time()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_match.main(argv)
+    wall = time.time() - t
+    launches = read_counts()
+    got = json.loads(buf.getvalue().strip().splitlines()[-1])
+    (i1, P1), (i2, P2) = read_pair(build_parser().parse_args(argv))
+    want = match_arrays(umodel, i1, P1, i2, P2)
+    say(f"[19 serve bf16] cli.match.main --bf16 (dpf, UNIV): rc {rc}, "
+        f"{wall:.1f} s, launches {launches}; {json.dumps(got)[:300]}")
+    if rc != 0 or launches["assoc_univ_v3"] != 3 or \
+            got["n_kpts"] != want["n_kpts"] or \
+            got["n_matched"] != want["n_matched"] or \
+            abs(got["score"] - want["score"]) > 1e-4:
+        fail(f"cli.match.main --bf16 gave {got}, the function path {want}")
+    out["main"] = {"rc": rc, "wall_s": wall}
+    del umodel
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_evaluate_bf16(pd32, root_large, index_dir, res7, res9):
+    """Phase 20: `evaluate --bf16` (`cli.evaluate`'s config with the flag,
+    seed-0 weights) over phase 7's 70-pair split in batches of 8 at n_max 64
+    (K2 on bf16 features) and phase 9's 5 pairs in batches of 2 at n_max
+    256 (K3), each with its f32 phase's loader (spawned workers / threads);
+    pairs/s after the first batch beside the f32 runs of phases 7 and 9."""
+    out = {}
+    for tag, shape, kernel, res32, workers, processes in (
+            ("20 evaluate bf16", (8, 64, 384), "assoc_bucket", res7, 4,
+             True),
+            ("20 evaluate bf16 large", (2, 256, 1536), "assoc_large", res9,
+             2, False)):
+        cfg = eval_config(*shape, "--bf16")
+        model = build_model(cfg, device="cuda", seed=SEED)
+        if kernel == "assoc_bucket":
+            pd = PairDataset(pd32.bench, cfg, augment=False)
+        else:
+            pd = pair_dataset(root_large, cfg, index_dir)
+            pd.pairs = pd.pairs[:3] + pd.pairs[-2:]
+        loader = DataLoader(pd, cfg, drop_last=False, device=DEV,
+                            device_prefetch=True, num_workers=workers,
+                            use_processes=processes)
+        try:
+            with DtypeTap() as tap:
+                launches, res, wall = run_evaluate(tag, model, loader,
+                                                   len(pd), kernel)
+        finally:
+            loader.close()
+        rate = lambda r, bs: (len(r["labels"]) - bs) / sum(
+            r["batch_seconds"][1:])
+        row = {"pairs": len(pd), "launches": launches,
+               "x_dtypes": tap.only_bf16(tag),
+               "pairs_per_s_after_first_bf16": rate(res, shape[0]),
+               "pairs_per_s_after_first_f32": rate(res32, shape[0]),
+               "ms_per_batch_bf16": [x * 1e3 for x in res["batch_seconds"]],
+               "ms_per_batch_f32": [x * 1e3 for x in res32["batch_seconds"]]}
+        say(f"[{tag}] {json.dumps(row)}")
+        out[kernel] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity_bf16():
+    """Phase 21a: one --bf16 train step of stage 1 at full width (B=2,
+    sk_tau 0.05, phase 16's batch and weights) on the card and on the
+    port's CPU path, TF32 off, the card's greedy picks replayed. Reported:
+    the loss terms, per-partition gradient cosines, finite gradients. Held:
+    every gradient finite, the same parameters trained, loss terms within
+    5e-2 relative, a cosine of 0.99 or more over the graph side and the
+    classifier, 0.9 over the backbone (the two sides round bf16 operands
+    after sums in another order; the embedded Sinkhorns and, in the
+    backbone, 20 train-mode BatchNorm backwards amplify the difference: two
+    compiles of the reference package's bf16 step, with and without excess
+    precision, agree to 0.94 there (tests/test_torch_bf16.py), and the
+    first run here gave 0.958)."""
+    cfg = train_parity_config()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, dtype="bfloat16"), ngm=dataclasses.replace(
+        cfg.ngm, compute_dtype="bfloat16"))
+    model_g = build_model(cfg, device="cuda", seed=SEED)
+    model_c = cpu_copy(model_g, cfg)
+    host = synthetic_pair_batch(cfg, 2, genuine_ratio=0.5, n_range=(40, 60),
+                                seed=SEED + 16)
+    saved = read_counts()
+    stage = default_stages()[0]
+    # in bf16 the predicted k (AFA-U on the Sinkhorn map) can round to
+    # another number of matches on the two sides: the picks are replayed
+    # and the difference in their number is reported
+    tap = GreedyTap(same_count=False)
+    with tf32_off(), DtypeTap() as dt:
+        mg, gg = tap.run("record",
+                         lambda: step_and_grads(model_g, host.to(DEV), stage))
+        torch.cuda.synchronize()
+    mc, gc = tap.run("replay", lambda: step_and_grads(model_c,
+                                                      host.to("cpu"), stage))
+    restore_counts(saved)
+    if set(gg) != set(gc):
+        fail("21 train parity bf16: the card and the CPU trained other "
+             "parameters")
+    bad = [n for n, g in gg.items() if not torch.isfinite(g).all()]
+    if bad:
+        fail(f"21 train parity bf16: non-finite gradients: {bad[:5]}")
+    parts = {}
+    for n in gc:
+        parts.setdefault(partition_of(n.split(".")[0]), []).append(n)
+    cos = {}
+    for part, names in parts.items():
+        a = torch.cat([gg[n].double().reshape(-1) for n in names])
+        b = torch.cat([gc[n].double().reshape(-1) for n in names])
+        cos[part] = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    per_tensor = {n: float(torch.nn.functional.cosine_similarity(
+        gg[n].double().reshape(-1), gc[n].double().reshape(-1), dim=0))
+        for n in gc}
+    loss = {k: {"card": mg[k], "cpu": mc[k],
+                "rel_err": abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)}
+            for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
+    row = {"loss": loss, "partition_cosine": cos,
+           "tensor_cosine_min": sorted(per_tensor.items(),
+                                       key=lambda kv: kv[1])[:3],
+           "x_dtypes": dt.only_bf16("21 train parity bf16"),
+           "match_count_cpu_minus_card": tap.count_diffs,
+           "n_grads": len(gc)}
+    say("[21 train parity bf16] " + json.dumps(row))
+    if any(not v["rel_err"] <= 5e-2 for v in loss.values()):
+        fail(f"21 train parity bf16: loss terms differ: {loss}")
+    if any(not c >= (0.9 if part == "backbone" else 0.99)
+           for part, c in cos.items()):
+        fail(f"21 train parity bf16: partition cosines {cos}")
+    return row
+
+
+def phase_train_bf16(tmp, runs32):
+    """Phase 21b: `cli.train --bf16` at full width (n_max 64, B=8) through
+    stages 1 and 2 on phase 17's split, 4 steps a stage; K6 bf16 and the
+    K2 backward in stage 1 only (run_cli_train's check); every K2 / K6
+    launch on bf16 X; ms per step and pairs/s beside phase 17's f32 runs."""
+    argv = ["--data-root", f"{tmp}/train/Synthetic", "--stages", "1,2",
+            "--epochs", "1", "--passes", "1", "--length", "32",
+            "--thread-workers", "--checkpoint-dir", f"{tmp}/train/ckpt_bf16",
+            "--test-length", "16", "--seed", str(SEED), "--bf16"]
+    with DtypeTap() as tap:
+        rows, report, launches, wall = run_cli_train("21 train bf16", argv)
+    f32 = {r["stage"]: [s for run in runs32 for s in run[0]
+                        if s["stage"] == r["stage"]] for r in rows}
+    for r in rows:
+        say(f"[21 train bf16] {r['stage']}: bf16 "
+            f"{r['train_step_ms']:.1f} ms/step, "
+            f"{r['train_pairs_per_s']:.1f} pairs/s; f32 (phase 17) "
+            f"{[round(x['train_step_ms'], 1) for x in f32[r['stage']]]} "
+            f"ms/step, "
+            f"{[round(x['train_pairs_per_s'], 1) for x in f32[r['stage']]]}"
+            f" pairs/s")
+    return {"stages": rows, "f32_stages": f32, "report": report,
+            "launches": launches, "wall_s": wall,
+            "x_dtypes": tap.only_bf16("21 train bf16")}
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -2184,7 +2691,7 @@ def main():
     phase_parity(model, cfg, req)
     del model
     torch.cuda.empty_cache()
-    phase_serve_bucket()
+    t_bucket = phase_serve_bucket()
 
     with tempfile.TemporaryDirectory(prefix="fpm_smoke_") as tmp:
         ecfg = eval_config(8, 64, 384)
@@ -2192,8 +2699,8 @@ def main():
         secs = write_split(f"{tmp}/bucket", fingers=7, n_pores=110)
         say(f"[7 evaluate] synthetic test split (7 fingers x 2 sessions x 2 "
             f"stances, 110 pores) written in {secs:.1f} s")
-        launches2, _, pd = phase_evaluate(emodel, ecfg, f"{tmp}/bucket",
-                                          f"{tmp}/index")
+        launches2, res7, pd = phase_evaluate(emodel, ecfg, f"{tmp}/bucket",
+                                             f"{tmp}/index")
         (_, _), batch = phase_evaluate_parity(emodel, ecfg, pd)
         if profile:
             phase_profile("one evaluate batch of 8", lambda: emodel(batch))
@@ -2204,7 +2711,8 @@ def main():
         secs = write_split(f"{tmp}/large", fingers=2, n_pores=320)
         say(f"[9 evaluate large] synthetic test split (2 fingers x 2 x 2, "
             f"320 pores) written in {secs:.1f} s")
-        launches3 = phase_evaluate_large(f"{tmp}/large", f"{tmp}/index")
+        launches3, res9 = phase_evaluate_large(f"{tmp}/large",
+                                               f"{tmp}/index")
         launches4, rows10 = phase_tune()
         phase_native()
         det_rows, dpf_rows, tf32_changed = phase_detect()
@@ -2216,6 +2724,12 @@ def main():
         if profile:
             profile_train_step()
         train_runs, smoke = phase_train(tmp)
+        rows18 = phase_backward_bf16()
+        serve19 = phase_serve_bf16(tmp, t_univ, t_bucket)
+        eval20 = phase_evaluate_bf16(pd, f"{tmp}/large", f"{tmp}/index",
+                                     res7, res9)
+        parity21 = phase_train_parity_bf16()
+        train21 = phase_train_bf16(tmp, train_runs)
     # the sweep times K4's (32, 128) f32 row; phase 3 the rest of that row
     main4 = next(r for r in rows4 if "bound_ms" in r)
     main4.update(next({k: r[k] for k in ("ms", "kernel_ms")}
@@ -2238,8 +2752,9 @@ def main():
              "ker_mb", "ms", "kernel_ms", "gather_ms",
              "plain_ms", "k1_ms", "library_ms", "bound_ms", "bound_by",
              "bytes", "flops")
-    keys15 = ("B", "N", "E", "C", "assoc_edges", "ms", "plain_ms", "dX_ms", "dX_kernel", "library_ms", "bound_ms",
-              "bound_by", "bytes", "flops")
+    keys15 = ("B", "N", "E", "C", "assoc_edges", "ms", "plain_ms", "dX_ms",
+              "dX_kernel", "library_ms", "library_bf16_ms", "library_nnz",
+              "bound_ms", "bound_by", "bytes", "flops")
     keys5 = ("shape", "ms", "plain_ms", "library_ms", "first_ms",
              "second_ms", "bound_ms", "bound_by", "bytes")
     of = lambda name: [r for r in rows23 if r["kernel"] == name]
@@ -2265,7 +2780,21 @@ def main():
         # K6: launches of the first full-width cli.train run (phase 17)
         kernel_entry("assoc_grad", k6.SOURCE, rows15,
                      train_runs[0][2]["assoc_grad"], k6.REPLACES,
+                     lambda r: (r["N"], r["C"]) == (64, 17), keys15),
+        # K6's bf16-X instantiation: launches of cli.train --bf16 (phase 21)
+        kernel_entry("assoc_grad_bf16", k6.SOURCE, rows18,
+                     train21["launches"]["assoc_grad"], k6.REPLACES,
                      lambda r: (r["N"], r["C"]) == (64, 17), keys15)]}
+    # the bf16 instantiations of K1 / K2 / K3 on the --bf16 paths: their
+    # launches there (phases 19, 20), and the bf16 dX launch of K2 / K3
+    ks = kernels["kernels"]
+    ks[0]["launches_bf16"] = serve19["univ"]["launches"]["assoc_univ_v3"]
+    ks[1]["launches_bf16"] = eval20["assoc_bucket"]["launches"][
+        "assoc_bucket"]
+    ks[2]["launches_bf16"] = eval20["assoc_large"]["launches"]["assoc_large"]
+    ks[1]["dX_bf16_ms"] = next(r["dX_ms"] for r in rows18
+                               if (r["N"], r["C"]) == (64, 17))
+    ks[2]["dX_bf16_ms"] = next(r["dX_ms"] for r in rows18 if r["N"] == 256)
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
@@ -2296,6 +2825,10 @@ def main():
                  train_runs],
         "smoke": {"stages": smoke[0], "launches": smoke[2],
                   "wall_s": smoke[3]}}}))
+    # the --bf16 slice: serving, evaluation and training beside f32
+    say(json.dumps({"bf16": {
+        "serve": serve19, "evaluate": eval20, "train_parity": parity21,
+        "train": train21}}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

@@ -89,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cls-k-features", action="store_true",
                     help="k-statistic classifier features (not ported yet)")
     ap.add_argument("--bf16", action="store_true",
-                    help="whole-model bfloat16 compute (not ported yet)")
+                    help="bfloat16 compute in the backbone and the graph-side "
+                         "hot path (params stay f32: f32 checkpoints load "
+                         "unchanged)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; pass cpu to run on "
                          "the CPU)")
@@ -206,8 +208,6 @@ def main(argv=None):
 
     if args.augment:
         raise _waits("--augment", "Queue A: training")
-    if args.bf16:
-        raise _waits("--bf16", "Queue A: --bf16 mixed precision")
     if args.hyperedge or args.cls_k_features:
         raise _waits("--hyperedge / --cls-k-features",
                      "Queue A: hyperedge/VGG/GCN/QAP extras")

@@ -89,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cls-k-features", action="store_true")
     ap.add_argument("--hyperedge", action="store_true")
     ap.add_argument("--bf16", action="store_true",
-                    help="whole-model bfloat16 compute (not ported yet)")
+                    help="bfloat16 compute in the backbone and the graph-side "
+                         "hot path (params stay f32: f32 checkpoints load "
+                         "unchanged)")
     ap.add_argument("--univ-kernel", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="route the assoc-GNN aggregations through the "

@@ -9,7 +9,10 @@ in the k-only and cls-only stages 2, 4 and 6 no backward reaches them.
 `--smoke` generates a tiny synthetic dataset and runs one epoch of stages 1
 and 6 (n_max 32, e_max 192, batches of 4), as the JAX CLI's does.
 
-Not ported (each raises naming its ROADMAP.md item): `--bf16`,
+`--bf16` is the JAX CLI's mixed precision (bf16 backbone convolutions and
+graph-side hot path, f32 parameters, optimizer state and losses; the
+backward of the association matvec on bf16 features runs through K2 / K3
+and K6 too). Not ported (each raises naming its ROADMAP.md item):
 `--hyperedge`, `--cls-k-features`, a mesh of more than one device. The JAX
 CLI's `warn_if_degraded_dispatch` probes the TPU runtime and has no
 counterpart here.
@@ -107,7 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hyperedge", action="store_true",
                     help="third-order association term (not ported yet)")
     ap.add_argument("--bf16", action="store_true",
-                    help="whole-model bfloat16 compute (not ported yet)")
+                    help="bfloat16 compute in the backbone and the graph-side "
+                         "hot path (params stay f32: f32 checkpoints load "
+                         "unchanged)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; pass cpu to run on "
                          "the CPU)")
@@ -122,8 +127,6 @@ def main(argv=None, on_stage_end=None):
 
     from .. import resolve_device
 
-    if args.bf16:
-        raise _waits("--bf16", "Queue A: --bf16 mixed precision")
     if args.hyperedge or args.cls_k_features:
         raise _waits("--hyperedge / --cls-k-features",
                      "Queue A: hyperedge/VGG/GCN/QAP extras")
@@ -150,6 +153,11 @@ def main(argv=None, on_stage_end=None):
             cfg,
             backbone=dataclasses.replace(cfg.backbone, node_taps=taps),
             ngm=dataclasses.replace(cfg.ngm, node_feature_dim=feat))
+    if args.bf16:
+        cfg = dataclasses.replace(
+            cfg,
+            backbone=dataclasses.replace(cfg.backbone, dtype="bfloat16"),
+            ngm=dataclasses.replace(cfg.ngm, compute_dtype="bfloat16"))
     if args.batch_size:
         cfg = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data,

@@ -37,7 +37,7 @@ class BackboneConfig:
     kind: str = "resnet18"   # "vgg16" / "vgg16_bn" / "none" are not ported
     node_channels: int = 256
     edge_channels: int = 512
-    dtype: str = "float32"
+    dtype: str = "float32"   # or "bfloat16": bf16 convolutions, f32 BatchNorm
     # stages contributing node features; add "layer2" (stride 8, 128ch) and
     # raise NGMConfig.node_feature_dim by 128
     node_taps: Tuple[str, ...] = ("layer3",)
@@ -79,7 +79,17 @@ class NGMConfig:
     cls_k_features: bool = False       # not ported yet
     hyperedge: bool = False            # not ported yet
     remat_sinkhorn: bool = True        # training-only knob
-    compute_dtype: str = "float32"     # "bfloat16" whole-model path not ported
+    # compute dtype of the graph-side hot path (spline conv, feature
+    # alignment, edge features, affinity einsums, assoc-GNN gathers and
+    # Dense layers): "bfloat16" halves the memory traffic of the
+    # gather/scatter-heavy ops and runs the products on bf16 operands, with
+    # f32 master params and f32 accumulation at every reduction (segment
+    # sums, normalizations).
+    # Sinkhorn / soft-top-k / AFA-U / losses always run f32 (log-space
+    # numerics; measured not the cost). bf16 keeps f32's exponent range, so
+    # no loss scaling is needed. Pair with backbone.dtype="bfloat16" for the
+    # full mixed-precision forward+backward (CLI: --bf16).
+    compute_dtype: str = "float32"
 
 
 @dataclass(frozen=True)

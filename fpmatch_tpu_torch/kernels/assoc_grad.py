@@ -18,6 +18,16 @@ kernel stands behind it: on the training path the JAX package leaves the
 matvec to XLA (`fpmatch_tpu/ops/assoc.py:46`) and JAX AD derives this from
 it; `REPLACES` names that function.
 
+bf16 X (the `--bf16` training path): dY stays f32 on the way in, and the
+rounding is JAX AD's of the bf16 forward terms bf16(bf16(Ke) X):
+
+    dKe[b,e1,e2] = bf16( sum_c bf16( bf16(dY[...]) X[...] ) )   (stored f32)
+    dKp[b,i,j]   = sum_c dY[b,i,j,c] f32(X[b,i,j,c])
+
+JAX sums dKe's products in bf16; here the sum is f32 and is rounded once,
+so the two differ by JAX's bf16 accumulation order only (within a bf16 ulp
+or so of the result).
+
 Padded slots: with `e1_mask` / `e2_mask` (True = real edge) a masked-out slot
 gets dKe = 0. Without masks a padded slot aliases node 0 and gets the value
 of an edge (0, 0), as JAX AD gives it; either way the model's `* emask` on
@@ -27,7 +37,7 @@ Ke (`InnerProductAffinity`) stops it.
 (sample, graph-1 edge) stages the two rows it needs in shared memory, a
 thread per graph-2 edge; dKp a thread per cell) for CUDA tensors — or raises
 — and uses the plain PyTorch version `assoc_edge_grad_plain` only for
-tensors that lie on the CPU. float32 only.
+tensors that lie on the CPU. X is float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -62,9 +72,10 @@ def _check(dY, X, src1, dst1, src2, dst2, e1_mask, e2_mask):
     if X.dim() != 4 or tuple(dY.shape) != tuple(X.shape):
         raise ValueError(f"dY and X must be one (B, N1, N2, C) shape, got "
                          f"{tuple(dY.shape)} and {tuple(X.shape)}")
-    if X.dtype != torch.float32 or dY.dtype != torch.float32:
-        raise TypeError("assoc_edge_grad is float32 only (bf16: ROADMAP.md, "
-                        "Queue A: --bf16 mixed precision)")
+    if dY.dtype != torch.float32 or X.dtype not in (torch.float32,
+                                                    torch.bfloat16):
+        raise TypeError(f"assoc_edge_grad takes float32 dY and float32 or "
+                        f"bfloat16 X, got {dY.dtype} and {X.dtype}")
     B = X.shape[0]
     for name, t in (("src1", src1), ("dst1", dst1), ("src2", src2),
                     ("dst2", dst2), ("e1_mask", e1_mask),
@@ -91,10 +102,14 @@ def assoc_edge_grad_plain(dY, X, src1, dst1, src2, dst2,
     """The plain PyTorch version: gather the dY rows out1 / X rows in1, then
     the columns out2 / in2, multiply and sum over C (graph-1 edges
     CHUNK_E1 at a time, so the live (B, chunk, E2, C) products stay
-    bounded). Returns (dKe (B, E1, E2), dKp (B, N1, N2)), float32."""
+    bounded); with bf16 X the roundings of the module docstring. Returns
+    (dKe (B, E1, E2), dKp (B, N1, N2)), float32."""
     _check(dY, X, src1, dst1, src2, dst2, e1_mask, e2_mask)
     out1, in1, out2, in2 = _roles(src1, dst1, src2, dst2, transpose)
     B, _, _, C = X.shape
+    bf16 = X.dtype == torch.bfloat16
+    Xf = X.float()
+    dYr = dY.bfloat16().float() if bf16 else dY
     bi = torch.arange(B, device=X.device)[:, None, None]
     o2 = out2.long()[:, None, :]
     i2 = in2.long()[:, None, :]
@@ -102,14 +117,19 @@ def assoc_edge_grad_plain(dY, X, src1, dst1, src2, dst2,
     for lo in range(0, out1.shape[1], CHUNK_E1):
         o1 = out1[:, lo:lo + CHUNK_E1].long()[:, :, None]
         i1 = in1[:, lo:lo + CHUNK_E1].long()[:, :, None]
-        parts.append((dY[bi, o1, o2] * X[bi, i1, i2]).sum(-1))
+        prod = dYr[bi, o1, o2] * Xf[bi, i1, i2]
+        if bf16:
+            prod = prod.bfloat16().float()
+        parts.append(prod.sum(-1))
     dKe = torch.cat(parts, dim=1) if parts else torch.zeros(
         (B, 0, out2.shape[1]), device=X.device)
+    if bf16:
+        dKe = dKe.bfloat16().float()
     if e1_mask is not None:
         dKe = torch.where(e1_mask.bool()[:, :, None], dKe, 0.0)
     if e2_mask is not None:
         dKe = torch.where(e2_mask.bool()[:, None, :], dKe, 0.0)
-    return dKe, (dY * X).sum(-1)
+    return dKe, (dY * Xf).sum(-1)
 
 
 def _launch(dY, X, out1, in1, out2, in2, e1_mask, e2_mask):
@@ -124,7 +144,8 @@ def _launch(dY, X, out1, in1, out2, in2, e1_mask, e2_mask):
     dKe = torch.empty((B, E1, E2), dtype=torch.float32, device=X.device)
     dKp = torch.empty((B, N1, N2), dtype=torch.float32, device=X.device)
     lib = _build.load("assoc_grad")
-    fn = lib.fpm_assoc_grad_f32
+    fn = (lib.fpm_assoc_grad_bf16 if X.dtype == torch.bfloat16
+          else lib.fpm_assoc_grad_f32)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
@@ -147,7 +168,8 @@ def assoc_edge_grad(dY: torch.Tensor, X: torch.Tensor, src1, dst1, src2,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dKe, dKp) of the association matvec for the upstream gradient `dY`.
 
-    :param dY, X: (B, N1, N2, C) float32 (X: the forward's input)
+    :param dY: (B, N1, N2, C) float32
+    :param X: the forward's input, same shape, float32 or bfloat16
     :param src1, dst1: (B, E1) integer edge endpoints; src2, dst2: (B, E2)
     :param transpose: the forward's orientation
     :param e1_mask, e2_mask: optional (B, E) validity; masked slots get 0

@@ -14,8 +14,16 @@
 // (dX is K2 / K3 again with the roles swapped.) No Pallas kernel stands
 // behind it: on the training path the JAX package leaves the association
 // matvec to XLA (fpmatch_tpu/ops/assoc.py:46 assoc_matvec: gather, multiply
-// by Ke, two segment sums) and JAX AD derives this gradient from it. f32
-// only.
+// by Ke, two segment sums) and JAX AD derives this gradient from it.
+//
+// X is f32 or bf16 (dY, dKe, dKp are f32). With bf16 X the forward's terms
+// are bf16(bf16(Ke) X), and JAX AD rounds dKe as follows: dY is cast to bf16,
+// each product bf16(dY) X is rounded to bf16, and the sum over c is bf16
+// (the cast Ke -> bf16 then hands it back as f32). Here dY is rounded to
+// bf16 once per staged element, each product is rounded to bf16, the sum is
+// f32 and is rounded to bf16 once at the end: JAX's value but for the order
+// of its bf16 accumulation. dKp is the f32 sum of dY f32(X), as JAX's
+// `Kp * X.astype(f32)` gives it.
 //
 // Bound: memory bytes. dKe (B E1 E2 f32) is the largest array written;
 // dY and X are read, 2 C flops per association edge and channel is far below
@@ -31,6 +39,8 @@
 //    order). A graph-1 slot that e1_mask marks as padding, or a graph-2 slot
 //    that e2_mask marks, gets dKe = 0.
 //  * the blocks after those take dKp, a thread per (b, i, j) cell.
+// The staged rows are f32 in both instantiations (bf16 X is widened, and dY
+// rounded, while it is staged), so one chunk rule serves both.
 // No atomics and a fixed summation order (channels in ascending order), so
 // two launches give the same bits. No cp.async / TMA / tensor cores.
 
@@ -44,14 +54,19 @@ namespace {
 
 constexpr int kThreads = 256;
 
+using fpm_common::round_bf16;
+using fpm_common::to_f32;
+
+template <typename XT>
 __global__ void __launch_bounds__(kThreads)
-assoc_grad_kernel(const float* __restrict__ dY, const float* __restrict__ X,
+assoc_grad_kernel(const float* __restrict__ dY, const XT* __restrict__ X,
                   const int* __restrict__ out1, const int* __restrict__ in1,
                   const int* __restrict__ out2, const int* __restrict__ in2,
                   const uint8_t* __restrict__ m1,
                   const uint8_t* __restrict__ m2, float* __restrict__ dKe,
                   float* __restrict__ dKp, int B, int N1, int N2, int C,
                   int E1, int E2, int cc) {
+  constexpr bool kBf16 = sizeof(XT) == 2;
   extern __shared__ float smem[];
   const long long edge_blocks = (long long)B * E1;
   const long long blk = blockIdx.x;
@@ -61,9 +76,10 @@ assoc_grad_kernel(const float* __restrict__ dY, const float* __restrict__ X,
     const long long cells = (long long)B * N1 * N2;
     if (cell >= cells) return;
     const float* y = dY + cell * C;
-    const float* x = X + cell * C;
+    const XT* x = X + cell * C;
     float acc = 0.0f;
-    for (int c = 0; c < C; ++c) acc = fmaf(__ldg(y + c), __ldg(x + c), acc);
+    for (int c = 0; c < C; ++c)
+      acc = fmaf(__ldg(y + c), to_f32(__ldg(x + c)), acc);
     dKp[cell] = acc;
     return;
   }
@@ -79,7 +95,7 @@ assoc_grad_kernel(const float* __restrict__ dY, const float* __restrict__ X,
   const int a = out1[(long long)b * E1 + e1];
   const int r = in1[(long long)b * E1 + e1];
   const float* yrow = dY + ((long long)b * N1 + a) * N2 * C;
-  const float* xrow = X + ((long long)b * N1 + r) * N2 * C;
+  const XT* xrow = X + ((long long)b * N1 + r) * N2 * C;
   const int* o2 = out2 + (long long)b * E2;
   const int* i2 = in2 + (long long)b * E2;
   const uint8_t* mk2 = m2 == nullptr ? nullptr : m2 + (long long)b * E2;
@@ -91,8 +107,9 @@ assoc_grad_kernel(const float* __restrict__ dY, const float* __restrict__ X,
     __syncthreads();                              // previous chunk consumed
     for (int k = threadIdx.x; k < N2 * w; k += blockDim.x) {
       const int j = k / w, c = k - j * w;
-      ys[j * w + c] = __ldg(yrow + (long long)j * C + c0 + c);
-      xs[j * w + c] = __ldg(xrow + (long long)j * C + c0 + c);
+      const float y = __ldg(yrow + (long long)j * C + c0 + c);
+      ys[j * w + c] = kBf16 ? round_bf16(y) : y;
+      xs[j * w + c] = to_f32(__ldg(xrow + (long long)j * C + c0 + c));
     }
     __syncthreads();
     for (int e2 = threadIdx.x; e2 < E2; e2 += blockDim.x) {
@@ -103,26 +120,26 @@ assoc_grad_kernel(const float* __restrict__ dY, const float* __restrict__ X,
       const float* yp = ys + __ldg(o2 + e2) * w;
       const float* xp = xs + __ldg(i2 + e2) * w;
       float acc = c0 == 0 ? 0.0f : row[e2];
-      for (int c = 0; c < w; ++c) acc = fmaf(yp[c], xp[c], acc);
-      row[e2] = acc;
+      if constexpr (kBf16) {
+        // bf16 x bf16 is exact in f32; the product is rounded as JAX's
+        // bf16 multiply, the f32 sum once at the end
+        for (int c = 0; c < w; ++c)
+          acc = __fadd_rn(acc, round_bf16(__fmul_rn(yp[c], xp[c])));
+        row[e2] = c0 + w >= C ? round_bf16(acc) : acc;
+      } else {
+        for (int c = 0; c < w; ++c) acc = fmaf(yp[c], xp[c], acc);
+        row[e2] = acc;
+      }
     }
   }
 }
 
-}  // namespace
-
-// dY, X: (B, N1, N2, C) f32; out1, in1: (B, E1) int32; out2, in2: (B, E2)
-// int32; m1: (B, E1) / m2: (B, E2) bytes (1 = real edge) or null; dKe
-// (B, E1, E2) and dKp (B, N1, N2) f32, written in full. cc: channels per
-// staged chunk (the wrapper picks it so that 2 N2 cc floats fit in `smem`
-// bytes). Returns the cudaError_t of the launch.
-extern "C" int fpm_assoc_grad_f32(const void* dY, const void* X,
-                                  const void* out1, const void* in1,
-                                  const void* out2, const void* in2,
-                                  const void* m1, const void* m2, void* dKe,
-                                  void* dKp, int B, int N1, int N2, int C,
-                                  int E1, int E2, int cc, int smem,
-                                  void* stream) {
+template <typename XT>
+int launch_grad(const void* dY, const void* X, const void* out1,
+                const void* in1, const void* out2, const void* in2,
+                const void* m1, const void* m2, void* dKe, void* dKp, int B,
+                int N1, int N2, int C, int E1, int E2, int cc, int smem,
+                void* stream) {
   const long long edge_blocks = (long long)B * E1;
   const long long cells = (long long)B * N1 * N2;
   const long long blocks = edge_blocks + (cells + kThreads - 1) / kThreads;
@@ -130,13 +147,35 @@ extern "C" int fpm_assoc_grad_f32(const void* dY, const void* X,
   if (blocks > 0x7fffffffLL || C < 1 || cc < 1) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        assoc_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        assoc_grad_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
   }
-  assoc_grad_kernel<<<(unsigned)blocks, kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      (const float*)dY, (const float*)X, (const int*)out1, (const int*)in1,
+  assoc_grad_kernel<XT><<<(unsigned)blocks, kThreads, smem,
+                          (cudaStream_t)stream>>>(
+      (const float*)dY, (const XT*)X, (const int*)out1, (const int*)in1,
       (const int*)out2, (const int*)in2, (const uint8_t*)m1,
       (const uint8_t*)m2, (float*)dKe, (float*)dKp, B, N1, N2, C, E1, E2, cc);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// dY: (B, N1, N2, C) f32; X: the same shape, f32 (`_f32`) or bf16
+// (`_bf16`); out1, in1: (B, E1) int32; out2, in2: (B, E2) int32; m1: (B, E1)
+// / m2: (B, E2) bytes (1 = real edge) or null; dKe (B, E1, E2) and dKp
+// (B, N1, N2) f32, written in full. cc: channels per staged chunk (the
+// wrapper picks it so that 2 N2 cc floats fit in `smem` bytes). Returns the
+// cudaError_t of the launch.
+#define FPM_GRAD_ENTRY(NAME, XT)                                              \
+  extern "C" int NAME(const void* dY, const void* X, const void* out1,        \
+                      const void* in1, const void* out2, const void* in2,     \
+                      const void* m1, const void* m2, void* dKe, void* dKp,   \
+                      int B, int N1, int N2, int C, int E1, int E2, int cc,   \
+                      int smem, void* stream) {                               \
+    return launch_grad<XT>(dY, X, out1, in1, out2, in2, m1, m2, dKe, dKp, B,  \
+                           N1, N2, C, E1, E2, cc, smem, stream);              \
+  }
+
+FPM_GRAD_ENTRY(fpm_assoc_grad_f32, float)
+FPM_GRAD_ENTRY(fpm_assoc_grad_bf16, __nv_bfloat16)

@@ -12,6 +12,11 @@ feature maps go out as (B, H_f, W_f, C). Child names equal the Flax module's
 weight converter relies on. BatchNorm runs in either mode, chosen per call
 (`forward(x, train)`, as the Flax module's argument): running statistics, or
 Flax's train mode (see `BatchNorm2d`).
+
+`dtype` is the Flax module's compute dtype: with bf16 every convolution
+casts its input and its f32 kernel to bf16 and gives bf16 (`conv`), while
+every BatchNorm works and gives f32 (Flax's `BatchNorm(dtype=float32)`), so
+the ReLUs, the residual sums, the max-pool and the three outputs are f32.
 """
 from __future__ import annotations
 
@@ -21,9 +26,20 @@ import torch
 from torch import nn
 
 
+def conv(layer: nn.Conv2d, x: torch.Tensor,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`flax.linen.Conv(dtype=dtype)` over the f32 kernel of `layer` (no
+    bias): input and kernel cast to `dtype`, the result in it."""
+    if dtype == torch.float32:
+        return layer(x)
+    return nn.functional.conv2d(x.to(dtype), layer.weight.to(dtype), None,
+                                layer.stride, layer.padding)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with `flax.linen.BatchNorm`'s semantics (momentum 0.9, eps
-    1e-5), the mode given per call. `train=False`: the running statistics.
+    1e-5), the mode given per call, on a float32 copy of its input (its
+    output is float32 whatever the input's dtype). `train=False`: the running statistics.
     `train=True`: the biased batch statistics normalize, and the running
     statistics move to `0.9 old + 0.1 batch` with the BIASED batch variance
     (`nn.BatchNorm2d` would fold in the unbiased one, drifting from the JAX
@@ -34,6 +50,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x, train: bool = False):
+        x = x.float()
         if not train:
             return nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
@@ -48,8 +65,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, channels, 3, stride=stride,
                                padding=1, bias=False)
         self.bn1 = BatchNorm2d(channels)
@@ -62,10 +81,11 @@ class BasicBlock(nn.Module):
             self.downsample_bn = BatchNorm2d(channels)
 
     def forward(self, x, train: bool = False):
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+        dt = self.dtype
+        y = torch.relu(self.bn1(conv(self.conv1, x, dt), train))
+        y = self.bn2(conv(self.conv2, y, dt), train)
         if self.has_downsample:
-            x = self.downsample_bn(self.downsample_conv(x), train)
+            x = self.downsample_bn(conv(self.downsample_conv, x, dt), train)
         return torch.relu(y + x)
 
 
@@ -77,8 +97,10 @@ class ResNet18Backbone(nn.Module):
                  stem_channels: int = 64,
                  stage_channels: Tuple[int, int, int, int] = (64, 128, 256,
                                                               512),
-                 blocks_per_stage: int = 2, in_channels: int = 3):
+                 blocks_per_stage: int = 2, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.node_taps = tuple(node_taps)
         self.blocks_per_stage = blocks_per_stage
         self.conv1 = nn.Conv2d(in_channels, stem_channels, 7, stride=2,
@@ -90,11 +112,13 @@ class ResNet18Backbone(nn.Module):
             stride = 1 if i == 0 else 2
             for b in range(blocks_per_stage):
                 self.add_module(f"layer{i + 1}_{b}",
-                                BasicBlock(prev, ch, stride if b == 0 else 1))
+                                BasicBlock(prev, ch, stride if b == 0 else 1,
+                                           dtype))
                 prev = ch
 
     def forward(self, x: torch.Tensor, train: bool = False):
-        """:param x: (B, H, W, 3) normalized images, channels-last
+        """:param x: (B, H, W, 3) normalized images, channels-last (float32,
+            or already cast to the compute dtype)
         :param train: BatchNorm in train mode (batch statistics)
         :return: (tuple of node feature maps (B, H_f, W_f, C), one per tap;
                   edge map (B, H/32, W/32, C4); global feature (B, C4))"""
@@ -104,7 +128,8 @@ class ResNet18Backbone(nn.Module):
             # stride-2 convolution (the downsample) over a channels-last
             # input corrupts the heap at narrow widths (8 -> 16 channels)
             y = y.contiguous()
-        y = self.pool(torch.relu(self.bn1(self.conv1(y), train)))
+        y = self.pool(torch.relu(self.bn1(conv(self.conv1, y, self.dtype),
+                                          train)))
         taps = {}
         for i in range(4):
             for b in range(self.blocks_per_stage):

@@ -6,6 +6,10 @@ Parameter and child names equal the Flax modules' (the weight converter
 carries them across by name). BatchNorm takes its mode per call (`train`),
 as the Flax modules do; the embedded Sinkhorn is recomputed in the backward
 (`torch.utils.checkpoint`), as the Flax layers' `remat_sk` does.
+
+Mixed precision (`--bf16`) follows the Flax modules' explicit casts, not an
+autocast: parameters stay float32, and a layer built with `dtype=bf16` casts
+its input and parameters at use (`dense`, Flax's `nn.Dense(dtype=)`).
 """
 from __future__ import annotations
 
@@ -18,6 +22,19 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.assoc import assoc_aggregate_mean
 from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.spline import spline_conv
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`flax.linen.Dense(dtype=dtype)` over the float32 parameters of
+    `layer`: the input, the kernel and the bias are cast to `dtype` and the
+    result is in it (bf16: the product rounded, then the bias added in bf16,
+    as Flax's `dot_general` then `y + bias`). float32: the layer as it is,
+    on a float32 input."""
+    if dtype == torch.float32:
+        return layer(x.float())
+    y = nn.functional.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class SplineNet(nn.Module):
@@ -39,7 +56,8 @@ class SplineNet(nn.Module):
                 torch.zeros(features)))
 
     def forward(self, x, src, dst, edge_attr, edge_mask, node_mask):
-        """x: (G, N, F); returns x + 0.1 * SConv(x), masked."""
+        """x: (G, N, F), float32 or bf16 (the convolutions run in x's dtype,
+        their parameters cast at use); returns x + 0.1 * SConv(x), masked."""
         h = x
         for i in range(self.num_layers):
             h = spline_conv(h, src, dst, edge_attr,
@@ -55,7 +73,11 @@ class SplineNet(nn.Module):
 
 class InnerProductAffinity(nn.Module):
     """Global-feature-gated inner-product affinity
-    `softplus(X diag(tanh(A w)) Y^T) - 0.5`; output f32."""
+    `softplus(X diag(tanh(A w)) Y^T) - 0.5`; output f32. With bf16 X / Y the
+    gated X is rounded to bf16 and the product is formed in f32 from the
+    bf16 operands, never rounded to bf16 (the Flax einsum's
+    `preferred_element_type=f32`; bf16 x bf16 products are exact in f32, so
+    on the card this needs TF32 matmul off, torch's default)."""
 
     def __init__(self, dim: int, global_dim: int):
         super().__init__()
@@ -64,9 +86,10 @@ class InnerProductAffinity(nn.Module):
     def forward(self, X, Y, weights, mask=None):
         """X: (B, n1, d), Y: (B, n2, d), weights: (B, gdim)."""
         coeff = torch.tanh(self.A(weights))
-        res = torch.einsum("bid,bjd->bij", X * coeff[:, None, :].to(X.dtype),
-                           Y)
-        res = nn.functional.softplus(res.float()) - 0.5
+        res = torch.einsum("bid,bjd->bij",
+                           (X * coeff[:, None, :].to(X.dtype)).float(),
+                           Y.float())
+        res = nn.functional.softplus(res) - 0.5
         if mask is not None:
             res = res * mask
         return res
@@ -86,14 +109,18 @@ class AssocGNNLayerBatched(nn.Module):
     """One association-graph convolution whose sparse mean aggregation
     (K^T vec(X) / rownnz) is computed by the CALLER: the UNIV serving route
     feeds the CUDA kernel's result here. lin_l(agg) + lin_r(X) + a 2-layer
-    self MLP, plus the embedded-Sinkhorn channel."""
+    self MLP, plus the embedded-Sinkhorn channel. `dtype` is the compute
+    dtype: with bf16 the input is cast to it, every Dense runs in it
+    (`dense`) and the output is bf16; the Sinkhorn channel always runs in
+    f32 and is cast back."""
 
     def __init__(self, in_features: int, out_features: int = 16,
                  sk_channel: int = 1, sk_iter: int = 20,
-                 sk_tau: float = 0.05):
+                 sk_tau: float = 0.05, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sk_channel, self.sk_iter, self.sk_tau = sk_channel, sk_iter, \
             sk_tau
+        self.dtype = dtype
         self.lin_l = nn.Linear(in_features, out_features)
         self.lin_r = nn.Linear(in_features, out_features, bias=False)
         self.self0 = nn.Linear(in_features, out_features)
@@ -103,11 +130,14 @@ class AssocGNNLayerBatched(nn.Module):
 
     def forward(self, X, agg, kp_present, n1, n2):
         """X, agg: (B, N1, N2, C_in); kp_present: (B, N1, N2); n1, n2: (B,)."""
-        x1 = self.lin_l(agg) + self.lin_r(X)
-        h = torch.relu(self.self1(torch.relu(self.self0(X))))
+        cdt = self.dtype
+        Xc = X.to(cdt)
+        x1 = dense(self.lin_l, agg, cdt) + dense(self.lin_r, Xc, cdt)
+        h = torch.relu(dense(self.self1,
+                             torch.relu(dense(self.self0, Xc, cdt)), cdt))
         x1 = x1 + h
         if self.sk_channel:
-            sk_in = self.classifier(x1)
+            sk_in = dense(self.classifier, x1, cdt)
 
             def sk_fn(x):
                 return sinkhorn_batch(x, n1, n2, tau=self.sk_tau,
@@ -122,15 +152,17 @@ class AssocGNNLayerBatched(nn.Module):
 
 class AssocGNNLayer(AssocGNNLayerBatched):
     """The bucket-scale layer: computes the factorized mean aggregation over
-    K^T itself (`ops.assoc.assoc_aggregate_mean`, plain torch ops). Same
-    parameters as `AssocGNNLayerBatched`."""
+    K^T itself (`ops.assoc.assoc_aggregate_mean`: the K2 / K3 kernels on a
+    CUDA tensor, the plain ops on a CPU one) from X in the compute dtype (its
+    result is f32). Same parameters as `AssocGNNLayerBatched`."""
 
     def forward(self, X, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst, kp_present,
                 e1_mask, e2_mask, n1, n2):
-        agg = assoc_aggregate_mean(X, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst,
+        Xc = X.to(self.dtype)
+        agg = assoc_aggregate_mean(Xc, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst,
                                    kp_present, e1_mask, e2_mask,
                                    transpose=True)
-        return super().forward(X, agg, kp_present, n1, n2)
+        return super().forward(Xc, agg, kp_present, n1, n2)
 
 
 class MaskedBatchNorm(nn.Module):

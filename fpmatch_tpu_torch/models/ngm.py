@@ -23,6 +23,17 @@ soft top-k on the ground-truth k and, unless `bn_main` / `bn_cls` say
 otherwise, the backbone's and the match classifier's BatchNorm in train mode.
 Without `train` the forward runs under `torch.inference_mode()`.
 
+Mixed precision (`backbone.dtype` / `ngm.compute_dtype` = "bfloat16", the
+CLIs' `--bf16`) is the JAX model's explicit casts, not an autocast: the
+images are normalized in f32 and cast to bf16, the backbone's convolutions
+run in bf16 and its BatchNorms in f32; the feature maps are normalized in
+f32 and cast to the compute dtype, so the alignment, the spline
+convolutions, the edge features, the affinities' operands and the assoc-GNN
+(its K1 / K2 / K3 aggregations and Dense layers) run in bf16, with f32
+affinities and f32 sums; the final classifier and everything after it (the
+Sinkhorns, AFA-U, soft top-k, greedy, the match classifier, the losses) stay
+f32. Parameters are f32 in both precisions, so one state_dict serves both.
+
 Options of the JAX model that are not ported yet raise NotImplementedError
 naming their ROADMAP.md item.
 """
@@ -96,7 +107,8 @@ class NGMNet(nn.Module):
         per call (`forward(batch, univ_plan=...)`), which is how a server
         that keeps one model answers pair after pair.
     :param univ_bf16: run the kernel's gather/multiply from bf16 association
-        features (Ke, accumulation and result stay f32).
+        features (Ke, accumulation and result stay f32); implied by
+        `ngm.compute_dtype == "bfloat16"`, as in the JAX model.
     """
 
     def __init__(self, cfg: Config, univ_plan=None, univ_bf16: bool = False):
@@ -111,17 +123,21 @@ class NGMNet(nn.Module):
         if ngm.cls_k_features:
             raise _waits("ngm.cls_k_features",
                          "Queue A: hyperedge/VGG/GCN/QAP extras")
-        if ngm.compute_dtype != "float32" or bb.dtype != "float32":
-            raise _waits("whole-model bfloat16 compute",
-                         "Queue A: --bf16 mixed precision")
         self.cfg = cfg
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if {ngm.compute_dtype, bb.dtype} - set(dtypes):
+            raise ValueError(f"compute_dtype / backbone.dtype must be one of "
+                             f"{sorted(dtypes)}, got {ngm.compute_dtype!r} / "
+                             f"{bb.dtype!r}")
+        self.compute_dtype = dtypes[ngm.compute_dtype]
+        self.backbone_dtype = dtypes[bb.dtype]
         self.univ_plan = univ_plan
         self.univ_bf16 = univ_bf16
 
         self.backbone = ResNet18Backbone(
             node_taps=bb.node_taps, stem_channels=bb.stem_channels,
             stage_channels=bb.stage_channels,
-            blocks_per_stage=bb.blocks_per_stage)
+            blocks_per_stage=bb.blocks_per_stage, dtype=self.backbone_dtype)
         F = ngm.node_feature_dim
         gdim = 2 * bb.stage_channels[3]
         self.spline = SplineNet(features=F, num_layers=ngm.spline_layers)
@@ -133,7 +149,8 @@ class NGMNet(nn.Module):
             # class's forward: one set of parameters for both routes
             self.add_module(f"gnn_{i}", AssocGNNLayer(
                 c_in, out_features=ngm.gnn_feat[i], sk_channel=ngm.sk_emb,
-                sk_iter=ngm.sk_layer_iter, sk_tau=ngm.sk_tau))
+                sk_iter=ngm.sk_layer_iter, sk_tau=ngm.sk_tau,
+                dtype=self.compute_dtype))
             c_in = ngm.gnn_feat[i] + ngm.sk_emb
         self.classifier = nn.Linear(c_in, 1)
         if ngm.regression:
@@ -176,6 +193,7 @@ class NGMNet(nn.Module):
     def _forward(self, batch: PairBatch, train: bool, hungarian_mask, plan,
                  bn_main: bool, bn_cls: bool) -> Dict[str, torch.Tensor]:
         cfg = self.cfg.ngm
+        cdt = self.compute_dtype
         if batch.row_plan is not None:
             raise _waits("the edge-sharded path (batch.row_plan)",
                          "Queue A: parallel/")
@@ -200,10 +218,13 @@ class NGMNet(nn.Module):
             imgs = (imgs.float() / 255.0 - self.norm_means) / self.norm_std
         elif C_in == 1:
             imgs = imgs.expand(-1, -1, -1, 3)
-        node_maps, edges_map, global_feat = self.backbone(imgs.float(),
-                                                          bn_main)
-        node_maps = [normalize_over_channels(m.float()) for m in node_maps]
-        edges_map = normalize_over_channels(edges_map.float())
+        node_maps, edges_map, global_feat = self.backbone(
+            imgs.float().to(self.backbone_dtype), bn_main)
+        # channel-normalize in f32, then drop to the compute dtype for the
+        # alignment and everything graph-side
+        node_maps = [normalize_over_channels(m.float()).to(cdt)
+                     for m in node_maps]
+        edges_map = normalize_over_channels(edges_map.float()).to(cdt)
         global_feat = global_feat.float()
 
         # ---- bilinear alignment at keypoints -----------------------------
@@ -259,8 +280,9 @@ class NGMNet(nn.Module):
                                batch.src[:, 1], batch.dst[:, 1], N, N,
                                transpose=True)
             deg = torch.clamp(deg, min=1.0)[..., None]
+            kernel_bf16 = self.univ_bf16 or cdt == torch.bfloat16
             for i in range(cfg.gnn_layers):
-                xin = emb[0].bfloat16() if self.univ_bf16 else emb[0]
+                xin = emb[0].bfloat16() if kernel_bf16 else emb[0]
                 y = assoc_matvec_univ_v3(xin, Kp[0], Ke[0], plan)
                 layer = getattr(self, f"gnn_{i}")
                 emb = AssocGNNLayerBatched.forward(layer, emb, y[None] / deg,
@@ -273,7 +295,8 @@ class NGMNet(nn.Module):
                     edge_mask[:, 0], edge_mask[:, 1], n1, n2)
 
         # ---- scores + Sinkhorn -------------------------------------------
-        s = self.classifier(emb)[..., 0]                    # (B, N, N)
+        # f32 (Flax promotes a bf16 input against its f32 parameters)
+        s = self.classifier(emb.float())[..., 0]            # (B, N, N)
         # the two Sinkhorn chains are recomputed in the backward when
         # cfg.remat_sinkhorn (memory, not numbers), as the JAX model's
         # jax.checkpoint

@@ -135,7 +135,16 @@ class _AssocMatvec(torch.autograd.Function):
       dKe, dKp: `kernels.assoc_grad.assoc_edge_grad` (K6 on a CUDA tensor,
             its plain version on a CPU one); dKe is 0 on masked slots.
 
-    The edge lists and masks get no gradient. float32 only."""
+    With bf16 X, JAX AD of the bf16 forward (`fpmatch_tpu/ops/assoc.py:46`)
+    casts dY to bf16, multiplies each gathered bf16(dY) by bf16(Ke) with a
+    bf16 rounding, scatter-adds the terms into X's shape in bf16 and adds
+    bf16(Kp dY). Here the dispatch with `transpose` flipped runs on
+    X' = bf16(dY) with Kp = 0, which forms each term exactly so (it is the
+    forward's own rounding), sums the terms in f32; `Kp * dY` is added in f32
+    and the sum is rounded to bf16 once. So dX differs from JAX's by JAX's
+    bf16 accumulation only, and is the closer of the two to the exact sum.
+    dKe and dKp follow `assoc_edge_grad`'s bf16 rules. The edge lists and
+    masks get no gradient."""
 
     @staticmethod
     def forward(ctx, X, Kp, Ke, src1, dst1, src2, dst2, transpose, e1_mask,
@@ -153,9 +162,13 @@ class _AssocMatvec(torch.autograd.Function):
         dY = dY.contiguous().float()
         dX = dKp = dKe = None
         if ctx.needs_input_grad[0]:
-            dX, kernel = _matvec_dispatch(dY, Kp, Ke, src1, dst1, src2, dst2,
-                                          not ctx.transpose, e1_mask,
-                                          e2_mask)
+            bf16 = X.dtype == torch.bfloat16
+            dX, kernel = _matvec_dispatch(
+                dY.bfloat16() if bf16 else dY,
+                torch.zeros_like(Kp) if bf16 else Kp, Ke, src1, dst1, src2,
+                dst2, not ctx.transpose, e1_mask, e2_mask)
+            if bf16:
+                dX = (dX + Kp[..., None] * dY).bfloat16()
             if kernel is not None:
                 BACKWARD_LAUNCHES[kernel] += 1
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
@@ -176,18 +189,13 @@ def assoc_matvec_auto(X, Kp, Ke, src1, dst1, src2, dst2,
     they are the plain ops above, for which padded slots are inert through
     their Ke == 0. Both are one `torch.autograd.Function` (`_AssocMatvec`),
     whose backward runs on the same device: on a CUDA tensor the kernels
-    again (dX) and `kernels.assoc_grad` (dKe, dKp). Gradients are float32
-    only: a bfloat16 X that asks for one raises."""
+    again (dX) and `kernels.assoc_grad` (dKe, dKp). X is float32 or
+    bfloat16, with or without a gradient."""
     wants_grad = torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in (X, Kp, Ke))
     if not wants_grad:
         return _matvec_dispatch(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
                                 e1_mask, e2_mask)[0]
-    if X.dtype != torch.float32:
-        raise NotImplementedError(
-            "gradients of the association matvec with bfloat16 X are not "
-            "ported to fpmatch_tpu_torch yet (ROADMAP.md, Queue A: --bf16 "
-            "mixed precision)")
     return _AssocMatvec.apply(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
                               e1_mask, e2_mask)
 

@@ -152,16 +152,6 @@ def test_edge_grad_checks_its_inputs(rng):
         k6.assoc_edge_grad(tt(G), tt(X), e[0].float(), *e[1:])
 
 
-def test_bf16_gradient_raises_citing_the_roadmap(rng):
-    X, Kp, Ke, edges, _, _, _, _ = _assoc_case(rng, B=1, C=2)
-    x = tt(X).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="--bf16"):
-        t_assoc.assoc_matvec_auto(x, tt(Kp), tt(Ke),
-                                  *(tt(e) for e in edges))
-    with torch.no_grad():                     # inference keeps bf16 X
-        t_assoc.assoc_matvec_auto(x, tt(Kp), tt(Ke), *(tt(e) for e in edges))
-
-
 @pytest.mark.gpu
 def test_assoc_grad_kernel_and_backward_on_the_card(rng):
     """Needs a GPU and nvcc (run there with `pytest -m gpu`): K6 against its

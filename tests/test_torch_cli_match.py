@@ -3,6 +3,7 @@ the JAX package's, on two written images + .tsv keypoint files, with the
 Flax-initialised weights carried across as a checkpoint file. Also: package
 hygiene (the port and chip_smoke.py import no JAX and nothing of the JAX
 package)."""
+import functools
 import json
 import os
 import subprocess
@@ -65,10 +66,11 @@ def _argv(files, extra=()):
 
 
 @pytest.fixture(scope="module")
-def converted_checkpoint(pair_files):
+def flax0(pair_files):
     """The weights the JAX CLI scores with when it finds no checkpoint
-    (`model.init(PRNGKey(0), batch)`), carried across into the port's
-    checkpoint format: `<dir>/<name>.pt` + checkpoint.json."""
+    (`model.init(PRNGKey(0), batch, train=False)` of the same model on a
+    batch of the same buckets), from one jitted init (Flax's eager init of
+    the full-width model takes minutes on the CPU)."""
     d, files = pair_files
     args = t_match.build_parser().parse_args(_argv(files))
     tcfg = model_config_from_args(args)
@@ -77,8 +79,32 @@ def converted_checkpoint(pair_files):
     jargs = j_match.argparse.Namespace(**vars(args))
     from fpmatch_tpu.cli import model_config_from_args as j_cfg_from_args
     jcfg = j_cfg_from_args(jargs)
-    v = JNet(jcfg).init(jax.random.PRNGKey(0), JPairBatch(*batch[:9]),
-                        train=False)
+    init = jax.jit(functools.partial(JNet(jcfg).init, train=False))
+    return tcfg, init(jax.random.PRNGKey(0), JPairBatch(*batch[:9]))
+
+
+class _InitGiven:
+    """The JAX CLI's NGMNet with `init` answered by the variables `flax0`
+    computed (the same model, key and buckets); every other attribute is the
+    module's own, so the CLI's reading, eval step and JSON are its own."""
+
+    def __init__(self, variables, *args, **kw):
+        self._module = JNet(*args, **kw)
+        self._variables = variables
+
+    def init(self, *args, **kw):
+        return self._variables
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+@pytest.fixture(scope="module")
+def converted_checkpoint(pair_files, flax0):
+    """`flax0` carried across into the port's checkpoint format:
+    `<dir>/<name>.pt` + checkpoint.json."""
+    d, _ = pair_files
+    tcfg, v = flax0
     ckpt = d / "ckpt"
     ckpt.mkdir()
     torch.save(from_flax_variables(np_tree(v), tcfg), ckpt / "flax0.pt")
@@ -93,8 +119,18 @@ def _run(main, argv, capsys):
     return rc, json.loads(out[-1])
 
 
+@pytest.fixture
+def jax_cli_given_init(flax0, monkeypatch):
+    """The JAX CLI's init answered with `flax0`'s variables (the same model
+    and key: the CLI's shape flags are SHAPE_FLAGS in every test that runs
+    it), one full-width init for the file instead of one per JAX CLI run."""
+    from fpmatch_tpu.models import ngm as j_ngm     # the CLI imports it late
+    monkeypatch.setattr(j_ngm, "NGMNet",
+                        functools.partial(_InitGiven, flax0[1]))
+
+
 def test_cli_match_same_json_as_jax_cli(pair_files, converted_checkpoint,
-                                        capsys):
+                                        jax_cli_given_init, capsys):
     """Full model width, bucket route, greedy discretization, CPU. Flax's
     own init keeps AFA-U's U(-10, 10) score mixing and tau = 0.01 (see
     test_torch_ngm), so the probabilities are held to 5e-3 and the match
@@ -171,10 +207,9 @@ def test_cli_match_errors(pair_files, tmp_path, capsys):
                                   tsv2, *cpu], capsys)
     assert rc == 2 and out["error"] == "no keypoints found"
     # routes that wait for later work name their ROADMAP item
-    for extra in (["--kpts1", tsv1, "--kpts2", tsv2, "--bf16"],
-                  ["--kpts1", tsv1, "--kpts2", tsv2, "--viz", "x.png"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_match.main([png1, png2, *extra, *cpu])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_match.main([png1, png2, "--kpts1", tsv1, "--kpts2", tsv2, "--viz",
+                      "x.png", *cpu])
     with pytest.raises(FileNotFoundError):
         t_match.main([str(tmp_path / "nope.png"), png2, "--kpts1", tsv1,
                       "--kpts2", tsv2, *cpu])
@@ -232,7 +267,8 @@ def _same_json(got, want, exact_kpts=True):
     ["--detector", "cnn", "--detector-checkpoint", str(WEIGHTS)]],
     ids=["dpf-hungarian", "cnn-greedy"])
 def test_cli_match_bare_images_same_json_as_jax_cli(
-        bare_images, converted_checkpoint, capsys, extra):
+        bare_images, converted_checkpoint, jax_cli_given_init, capsys,
+        extra):
     """Two images and no keypoint files on both CLIs: the Lemes DPF detector
     (the JAX CLI's default) with the full Hungarian discretization (host
     LAPJV between two forwards), and the trained CNN detector with the

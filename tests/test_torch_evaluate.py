@@ -45,8 +45,9 @@ from fpmatch_tpu_torch.train import checkpoints as t_checkpoints
 from fpmatch_tpu_torch.train import losses as t_losses
 from fpmatch_tpu_torch.train import step as t_step
 from test_torch_ngm import _perm_equal_up_to_ties
-from test_torch_utils import (damp_afau_mixing, randomize_batch_stats, t2n,
-                              tiny_jax_config, to_torch_config)
+from test_torch_utils import (damp_afau_mixing, flax_init,
+                              randomize_batch_stats, t2n, tiny_jax_config,
+                              to_torch_config)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
 
@@ -361,7 +362,7 @@ def eval_case(tmp_path_factory):
     batch = j_pipeline.collate([jpd.get(i) for i in picks], jcfg)
     assert set(np.asarray(batch.label)) == {0.0, 1.0}
     model = JNet(jcfg)
-    v = model.init(jax.random.PRNGKey(0), batch, train=False)
+    v = flax_init(model, batch, train=False)
     v = damp_afau_mixing(randomize_batch_stats(v))
     net = build_model(tcfg, device="cpu",
                       state_dict=from_flax_variables(v, tcfg))
@@ -635,7 +636,6 @@ def test_cli_evaluate_without_matplotlib_skips_the_drawings(tmp_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bf16"], "bf16"),
     (["--hyperedge"], "hyperedge"),
     (["--cls-k-features"], "hyperedge"),
     (["--augment"], "training"),

@@ -37,8 +37,12 @@ def test_backbone_matches(rng, taps):
               blocks_per_stage=2)
     x = rng.normal(size=(3, 48, 64, 3)).astype(np.float32)
     jm = j_bb.ResNet18Backbone(node_taps=taps, **kw)
-    v = randomize_batch_stats(jm.init(KEY, jnp.asarray(x), False))
-    jn, je, jg = jm.apply(v, jnp.asarray(x), False)
+    # jitted: one compile each instead of every convolution dispatched and
+    # compiled on its own
+    v = randomize_batch_stats(jax.jit(jm.init, static_argnums=2)(
+        KEY, jnp.asarray(x), False))
+    jn, je, jg = jax.jit(jm.apply, static_argnums=2)(v, jnp.asarray(x),
+                                                      False)
     tm = load_into(t_bb.ResNet18Backbone(node_taps=taps, **kw), v["params"],
                    v["batch_stats"])
     with torch.no_grad():

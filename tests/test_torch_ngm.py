@@ -34,7 +34,7 @@ from fpmatch_tpu_torch.convert import from_flax_variables
 from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch as t_synth
 from fpmatch_tpu_torch.kernels.assoc_univ_v3 import plan_univ_v3 as t_plan
 from fpmatch_tpu_torch.models.ngm import NGMNet, PairBatch, build_model
-from test_torch_utils import (damp_afau_mixing, np_tree,
+from test_torch_utils import (damp_afau_mixing, flax_init, np_tree,
                               randomize_batch_stats, t2n, tiny_jax_config,
                               to_torch_config)
 
@@ -134,7 +134,7 @@ def bucket_case():
     jcfg = tiny_jax_config(sk_tau=0.05)
     batch = _mixed_batch(jcfg, seed=3)
     model = JNet(jcfg)
-    v = model.init(jax.random.PRNGKey(0), batch, train=False)
+    v = flax_init(model, batch, train=False)
     v = damp_afau_mixing(randomize_batch_stats(v))
     return jcfg, batch, model, v
 
@@ -189,14 +189,12 @@ def test_ngm_hungarian_mask_argument(bucket_case):
     _compare(want, got, 1e-4)
 
 
-@pytest.mark.parametrize("univ_bf16", [False, True])
-def test_ngm_univ_route_matches_jax(univ_bf16):
-    """B = 1 through the UNIV branch on both sides: JAX plan + Pallas kernel
-    (interpret mode) vs the port's plan + plain kernel version. With
-    univ_bf16 the aggregation reads bf16-rounded features on both sides and
-    both round Ke to bf16 on the pairs the JAX plan keeps (f32 Ke on its
-    spilled pairs): the same products, so the bounds of the f32 case hold,
-    perm_mat included."""
+@pytest.fixture(scope="module")
+def univ_case():
+    """B = 1 at n_max 16 for the UNIV route: the JAX config, the batch, the
+    padded graph-2 points, the edge lists, the plan's arguments (slot caps
+    keep the interpreted Pallas kernel's unrolled nest short; the port's
+    plan takes the same ones) and one Flax init."""
     jcfg = tiny_jax_config(n_max=16, e_max=96, sk_tau=0.05)
     batch = j_synth(jcfg, 1, n_range=(11, 15), image_hw=(32, 48), seed=7)
     N = jcfg.shapes.n_max
@@ -207,12 +205,22 @@ def test_ngm_univ_route_matches_jax(univ_bf16):
     pts2 = np.full((N, 2), 1e9, np.float32)
     pts2[:n2] = np.asarray(batch.points[0, 1, :n2])
     pts2[n2:, 0] += np.arange(N - n2)
-    # slot caps keep the interpreted Pallas kernel's unrolled nest short;
-    # the port's plan takes the same arguments (its kept / spilled flags)
     caps = dict(transpose=True, n1=N, s1_cap=3, s2_cap=3)
-    jplan = j_plan(pts2, s1, d1, s2, d2, **caps)
-    v = JNet(jcfg).init(jax.random.PRNGKey(0), batch, train=False)
+    v = flax_init(JNet(jcfg), batch, train=False)
     v = damp_afau_mixing(randomize_batch_stats(v))
+    return jcfg, batch, (pts2, s1, d1, s2, d2), caps, v
+
+
+@pytest.mark.parametrize("univ_bf16", [False, True])
+def test_ngm_univ_route_matches_jax(univ_case, univ_bf16):
+    """B = 1 through the UNIV branch on both sides: JAX plan + Pallas kernel
+    (interpret mode) vs the port's plan + plain kernel version. With
+    univ_bf16 the aggregation reads bf16-rounded features on both sides and
+    both round Ke to bf16 on the pairs the JAX plan keeps (f32 Ke on its
+    spilled pairs): the same products, so the bounds of the f32 case hold,
+    perm_mat included."""
+    jcfg, batch, (pts2, s1, d1, s2, d2), caps, v = univ_case
+    jplan = j_plan(pts2, s1, d1, s2, d2, **caps)
     want = JNet(jcfg, univ_plan=jplan, univ_bf16=univ_bf16).apply(
         v, batch, train=False)
 
@@ -240,7 +248,7 @@ def test_ngm_univ_route_matches_jax(univ_bf16):
                         for a in tb)))
 
 
-def test_eval_step_masked_univ_route_matches_jax(monkeypatch):
+def test_eval_step_masked_univ_route_matches_jax(univ_case, monkeypatch):
     """The masked step of a UNIV request against the JAX model built with
     its plan (Pallas interpret mode; the outputs of JAX's masked step are its
     forward's with the mask), given the same plan and mask. The plan must reach the forward: the UNIV
@@ -250,19 +258,8 @@ def test_eval_step_masked_univ_route_matches_jax(monkeypatch):
     from fpmatch_tpu_torch.models import ngm as t_ngm
     from fpmatch_tpu_torch.train import step as t_step
 
-    jcfg = tiny_jax_config(n_max=16, e_max=96, sk_tau=0.05)
-    batch = j_synth(jcfg, 1, n_range=(11, 15), image_hw=(32, 48), seed=7)
+    jcfg, batch, (pts2, s1, d1, s2, d2), caps, v = univ_case
     N = jcfg.shapes.n_max
-    n2 = int(batch.n_nodes[0, 1])
-    e1, e2 = int(batch.n_edges[0, 0]), int(batch.n_edges[0, 1])
-    s1, d1 = np.asarray(batch.src[0, 0, :e1]), np.asarray(batch.dst[0, 0, :e1])
-    s2, d2 = np.asarray(batch.src[0, 1, :e2]), np.asarray(batch.dst[0, 1, :e2])
-    pts2 = np.full((N, 2), 1e9, np.float32)
-    pts2[:n2] = np.asarray(batch.points[0, 1, :n2])
-    pts2[n2:, 0] += np.arange(N - n2)
-    caps = dict(transpose=True, n1=N, s1_cap=3, s2_cap=3)
-    v = JNet(jcfg).init(jax.random.PRNGKey(0), batch, train=False)
-    v = damp_afau_mixing(randomize_batch_stats(v))
     jmodel = JNet(jcfg, univ_plan=j_plan(pts2, s1, d1, s2, d2, **caps))
     mask = np.zeros((1, N, N), np.float32)
     mask[0, np.arange(N), (np.arange(N) + 2) % N] = 1
@@ -306,7 +303,7 @@ def test_ngm_untouched_init_at_model_temperature():
     jcfg = tiny_jax_config()
     batch = _mixed_batch(jcfg, seed=3)
     model = JNet(jcfg)
-    v = np_tree(model.init(jax.random.PRNGKey(0), batch, train=False))
+    v = np_tree(flax_init(model, batch, train=False))
     want = model.apply(v, batch, train=False)
     tcfg = to_torch_config(jcfg)
     net = build_model(tcfg, device="cpu",
@@ -328,8 +325,6 @@ def test_ngm_options_that_wait_raise():
             tcfg.replace(ngm=dataclasses.replace(tcfg.ngm, hyperedge=True)),
             tcfg.replace(ngm=dataclasses.replace(tcfg.ngm,
                                                  cls_k_features=True)),
-            tcfg.replace(ngm=dataclasses.replace(tcfg.ngm,
-                                                 compute_dtype="bfloat16")),
             tcfg.replace(backbone=dataclasses.replace(tcfg.backbone,
                                                       kind="vgg16"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -369,7 +364,7 @@ def test_seeded_init_is_reproducible_and_finite():
 def test_converter_rejects_a_tree_that_does_not_fit():
     jcfg = tiny_jax_config()
     batch = j_synth(jcfg, 1, n_range=(6, 12), image_hw=(32, 48), seed=1)
-    v = np_tree(JNet(jcfg).init(jax.random.PRNGKey(0), batch, train=False))
+    v = np_tree(flax_init(JNet(jcfg), batch, train=False))
     tcfg = to_torch_config(jcfg)
     sd = from_flax_variables(v, tcfg)
     assert set(sd) == set(NGMNet(tcfg).state_dict())

@@ -74,9 +74,9 @@ from fpmatch_tpu_torch.train import state as t_state
 from fpmatch_tpu_torch.train import step as t_step
 from fpmatch_tpu_torch.utils.logging import MetricsLogger
 from test_torch_ngm import _mixed_batch, _torch_batch
-from test_torch_utils import (damp_afau_mixing, np_tree,
+from test_torch_utils import (build_tiny, damp_afau_mixing, np_tree,
                               randomize_batch_stats, t2n, tiny_jax_config,
-                              to_torch_config)
+                              tiny_widths, to_torch_config)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
 GRAD_TOL = 1e-3
@@ -539,10 +539,13 @@ def test_metrics_logger_writes_jsonl(tmp_path):
     assert row["step"] == 3 and row["stage1/a"] == 1.5 and row["stage1/b"] == 2
 
 
-def test_cli_train_smoke_on_the_cpu(tmp_path):
+def test_cli_train_smoke_on_the_cpu(tmp_path, monkeypatch):
     """`cli.train --smoke --device cpu --thread-workers` end to end: the
     generated split, stages 1 and 6, a finite final report, checkpoints
-    that load back into a model of the smoke's shapes."""
+    that load back into a model of the smoke's shapes. The model is built
+    at tiny widths (`test_torch_utils.build_tiny`); `chip_smoke.py` runs
+    `--smoke` at full width on the card."""
+    built = build_tiny(monkeypatch)
     seen = []
     t0 = time.time()
     report = t_cli_train.main(
@@ -557,14 +560,16 @@ def test_cli_train_smoke_on_the_cpu(tmp_path):
     assert meta["latest"] == "stage6_last" and meta["stage"] == "stage6"
     sd = t_ckpt.restore_params(tmp_path / "ckpt", "stage6_best")
     smoke = ShapeConfig(n_max=32, e_max=192, t_max=96, univ_size=64)
-    build_model(Config(shapes=smoke), device="cpu", state_dict=sd)
+    assert built[0][0].shapes == smoke
+    build_model(tiny_widths(Config(shapes=smoke)), device="cpu",
+                state_dict=sd)
     rows = (tmp_path / "log" / "metrics.jsonl").read_text().splitlines()
     assert len(rows) == 2
     assert time.time() - t0 < 300
 
 
 def test_cli_train_options_that_wait_raise(tmp_path):
-    for flags, item in ((["--bf16"], "bf16"), (["--hyperedge"], "hyperedge"),
+    for flags, item in ((["--hyperedge"], "hyperedge"),
                         (["--cls-k-features"], "hyperedge"),
                         (["--n-devices", "2"], "parallel"),
                         (["--mesh", "2x2"], "parallel")):

@@ -3,6 +3,7 @@ against the JAX package (fpmatch_tpu) on the CPU: inputs are made with numpy
 from a seed and handed to both; weights are initialised by Flax and carried
 across with `fpmatch_tpu_torch.convert`."""
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -36,6 +37,44 @@ def to_torch_config(cfg) -> tc.Config:
         backbone=tc.BackboneConfig(**dataclasses.asdict(cfg.backbone)),
         ngm=tc.NGMConfig(**dataclasses.asdict(cfg.ngm)),
         data=tc.DataConfig(**dataclasses.asdict(cfg.data)))
+
+
+def flax_init(module, *args, **kw):
+    """`module.init(PRNGKey(0), *args, **kw)` under `jax.jit`: the same Flax
+    init, compiled once instead of dispatched op by op (the eager init of
+    the whole model takes a minute or more on the CPU)."""
+    return jax.jit(functools.partial(module.init, **kw))(
+        jax.random.PRNGKey(0), *args)
+
+
+def tiny_widths(cfg):
+    """A port Config (a CLI's) at tiny_jax_config's widths; its shapes,
+    data settings and dtypes kept."""
+    tiny = to_torch_config(tiny_jax_config())
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(tiny.backbone,
+                                          dtype=cfg.backbone.dtype),
+        ngm=dataclasses.replace(tiny.ngm,
+                                compute_dtype=cfg.ngm.compute_dtype))
+
+
+def build_tiny(monkeypatch):
+    """Make the port's CLIs build their model at tiny widths
+    (`tiny_widths`); returns the list of (config, model, state_dict) of
+    every model they build."""
+    from fpmatch_tpu_torch.models import ngm as t_ngm
+
+    seen = []
+    real = t_ngm.build_model
+
+    def build(cfg, *a, **k):
+        cfg = tiny_widths(cfg)
+        model = real(cfg, *a, **k)
+        seen.append((cfg, model, k.get("state_dict")))
+        return model
+
+    monkeypatch.setattr(t_ngm, "build_model", build)
+    return seen
 
 
 def np_tree(tree):
