@@ -5,6 +5,10 @@ one NVIDIA GPU.
     python3 chip_smoke.py            # needs one CUDA device and nvcc
     python3 chip_smoke.py --profile  # + torch.profiler tables of one request,
                                      #   one evaluate batch and one train step
+    python3 chip_smoke.py --parent DIR
+        # + K2 and K6 timed beside an unpacked checkout of another commit
+        #   (scripts/time_assoc_grad.py on both trees in turns): `ms_parent`
+        #   beside `ms_this_tree`, the medians of the same turns
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -35,7 +39,8 @@ Phases (each prints its own lines; any failure exits non-zero):
               bit-identical; times by CUDA events (assoc_univ_v3 also by
               torch.profiler), each timed case also timing the library call
               for the same function (torch.sparse.mm of K built as one CSR
-              matrix)
+              matrix; its bf16 call tried) and the bound with X read in
+              bf16
   4. serve    UNIV route (n_max=600, e_max=3840, univ=600) at full model
               width, a few requests through cli.match.match_arrays
   5. parity   one UNIV request against the port's own CPU run (plain kernel
@@ -77,11 +82,17 @@ Phases (each prints its own lines; any failure exits non-zero):
               dX through K2 / K3 with the roles swapped against the plain
               transposed product; the ops.assoc Function's gradients against
               torch.autograd of the plain forward (all within 1e-5 of the
-              range); K6 timed beside its plain version and its bound
+              range); K6 at C=33 (two passes) and C=64 at N=256 (global
+              memory) too, so every path of its launcher runs; K6 and the
+              dX launch timed beside their plain versions, bounds and
+              library calls
  16. train    one train step of stage 1 and then of stage 2 at full width,
               B=2, on the card and on the port's CPU path, TF32 off: loss
               terms, every gradient, BatchNorm statistics, frozen tensors
-              bit for bit (limits in `phase_train_parity`)
+              bit for bit (limits in `phase_train_parity`); for stage 1 the
+              gradient at the backbone's taps and at each of its layers,
+              card against CPU, and the same step with cuDNN's
+              deterministic algorithms (reported)
  17. train    python -m fpmatch_tpu_torch.cli.train's `main` at full width
               (n_max 64, e_max 384, B=8) through stages 1-6 on a synthetic
               split written here, 4 steps a stage, twice; per stage step ms,
@@ -95,14 +106,19 @@ Phases (each prints its own lines; any failure exits non-zero):
               two launches), the Function on the card against its CPU run;
               times, bounds with bf16 bytes for X, the library call
               (torch.sparse.sampled_addmm over K's CSR pattern, as in
-              phase 15; its bf16 call tried)
+              phase 15; its bf16 call tried); K6 bf16 at C=33 and, from
+              global memory, C=100 at N=256
  19. serve    --bf16: phase 4's and 6's requests (K1 / K2 on bf16
               features), wall ms beside the f32 ones, one request of each
               route against the CPU in bf16, cli.match.main --bf16 once
  20. evaluate --bf16 over phase 7's split (K2) and phase 9's (K3), pairs/s
               beside the f32 runs
  21. train    one --bf16 train step of stage 1 against the CPU (loss terms,
-              per-partition gradient cosines, finite gradients), then
+              per-partition gradient cosines, finite gradients; beside
+              it the f32 step of the same weights and picks as a yardstick:
+              the card's cosine to it not more than 0.02 below the CPU's,
+              per partition; and the same bf16 step with the plain
+              versions of K2 / K3 / K6, reported), then
               cli.train --bf16 through stages 1 and 2, 4 steps each, beside
               phase 17's f32 stages; every K1 / K2 / K3 / K6 launch of
               phases 19-21 on bf16 X
@@ -118,6 +134,7 @@ last carry the per-kernel JSON, the bare-image / Hungarian JSON and the
 card; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -156,6 +173,7 @@ from fpmatch_tpu_torch.kernels import assoc_univ as k4
 from fpmatch_tpu_torch.kernels import assoc_univ_v3 as k1
 from fpmatch_tpu_torch.kernels import inoculate as k5
 from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch
+from fpmatch_tpu_torch.models import backbone as t_backbone
 from fpmatch_tpu_torch.models import ngm as t_ngm
 from fpmatch_tpu_torch.models.ngm import build_model
 from fpmatch_tpu_torch.ops import assoc as ops_assoc
@@ -267,8 +285,6 @@ def phase_build():
     if not torch.equal(y_lib, y):
         fail("torch.add(x, 1) differs from the inoculate kernel")
     nbytes = 2 * 4 * x.numel()
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = x.numel() / PEAK_F32_FLOPS * 1e3
     flush = tune_univ.l2_flush(DEV)
     row = {"shape": list(k5.SHAPE), "err_vs_plain": err,
            "max_abs_err": err,
@@ -279,8 +295,7 @@ def phase_build():
                                  flush=flush),
            "first_ms": {k: v * 1e3 for k, v in first.items()},
            "second_ms": {k: v * 1e3 for k, v in second.items()},
-           "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "bytes": nbytes, **bound(nbytes, x.numel())}
     if err != 0.0:
         fail("inoculate is not exactly x + 1")
     say("[2 build] " + json.dumps(row))
@@ -338,7 +353,9 @@ def sparse_library(X, Kp, Ke, out1, in1, out2, in2, n_e):
                                 ).coalesce().to_sparse_csr()
     del idx, vals, keep
     Xf = X.float().reshape(M, C)
-    return lambda: torch.sparse.mm(K, Xf).reshape(B, N1, N2, C)
+    call = lambda: torch.sparse.mm(K, Xf).reshape(B, N1, N2, C)
+    call.K, call.X = K, Xf
+    return call
 
 
 def library_case(r, call, want, flush):
@@ -350,6 +367,31 @@ def library_case(r, call, want, flush):
         fail(f"the library call disagrees with the plain version: {err:.3e}")
     r.update(library_err_vs_plain=err,
              library_ms=time_ms(call, reps=10, flush=flush))
+
+
+def bound(nbytes, flops):
+    """The least time for `nbytes` moved and `flops` done (f32 peak):
+    {"bound_ms": ms, "bound_by": what binds}."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_bf16(K, X, flush):
+    """The library call with K and X in bf16 (`torch.sparse.mm` of a bf16
+    CSR matrix): its time, or why the library refused it. It rounds Kp and
+    every product otherwise than the kernels, so its values are not held."""
+    try:
+        Kb, Xb = K.to(torch.bfloat16), X.bfloat16()
+        torch.sparse.mm(Kb, Xb)
+        torch.cuda.synchronize()
+        return {"library_bf16_ms": time_ms(lambda: torch.sparse.mm(Kb, Xb),
+                                           reps=10, flush=flush)}
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        # what the library offers is reported, not worked around
+        return {"library_bf16_ms": None,
+                "library_bf16_refused": str(e).splitlines()[0][:200]}
 
 
 def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
@@ -421,8 +463,6 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
                      for t in plan.kernel_tables())
         nbytes = 4 * (2 * N * N * C + N * N + e1r * e2r) + tables
         flops = 2.0 * C * e1r * e2r + 2.0 * N * N * C
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
         r.update(
             ms=time_ms(lambda: k1.assoc_matvec_univ_v3(X, Kp, Ke, plan),
                        flush=flush),
@@ -443,12 +483,15 @@ def kernel_case(rng, N, n1, n2, E, C, transpose, flush, timed):
                 lambda: assoc_matvec_chunked(
                     X[None], Kp[None], Ke[None], pad(s1), pad(d1), pad(s2),
                     pad(d2), transpose=transpose), reps=5, flush=flush),
-            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bytes=nbytes, flops=flops, **bound(nbytes, flops))
+        # bf16 X: X read in 2 bytes, the rest as in f32
+        r["bound_ms_bf16"] = bound(nbytes - 2 * N * N * C,
+                                   flops)["bound_ms"]
         roles = (d1, s1, d2, s2) if transpose else (s1, d1, s2, d2)
         lib = sparse_library(X[None], Kp[None], Ke[None],
                              *(pad(a) for a in roles), [[e1r, e2r]])
         library_case(r, lambda: lib()[0], plain, flush)
+        r.update(library_bf16(lib.K, lib.X, flush))
     return r
 
 
@@ -549,14 +592,16 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
     index_bytes = 4 * B * (4 * E + 2 * (N + 1))
     nbytes = 4 * (2 * B * N * N * C + B * N * N + e_real) + index_bytes
     flops = 2.0 * C * e_real + 2.0 * B * N * N * C
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
     # the library call computes what both kernels compute: timed once
     lib_row = {}
     if timed:
         roles = (d1, s1, d2, s2) if transpose else (s1, d1, s2, d2)
-        library_case(lib_row, sparse_library(X, Kp, Ke, *roles, n_e), ops,
-                     flush)
+        lib = sparse_library(X, Kp, Ke, *roles, n_e)
+        library_case(lib_row, lib, ops, flush)
+        lib_row.update(library_bf16(lib.K, lib.X, flush))
+        # bf16 X: X read in 2 bytes, the rest as in f32
+        lib_row["bound_ms_bf16"] = bound(nbytes - 2 * B * N * N * C,
+                                         flops)["bound_ms"]
     rows = []
     for name, kern, plain in (
             ("assoc_bucket", k23.assoc_matvec_bucket,
@@ -619,8 +664,7 @@ def bucket_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed,
                     lambda: assoc_matvec(X, Kp, Ke, *edges,
                                          transpose=transpose),
                     reps=5, flush=flush),
-                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, **bound(nbytes, flops),
                 **lib_row)
             if name == "assoc_large":
                 r.update(k2_ms=rows[0]["ms"], k2_ms_bf16=rows[0]["ms_bf16"],
@@ -728,10 +772,7 @@ def univ_bound(N, C, E1, E2, plan):
     tables = sum(t.numel() * t.element_size() for t in plan.kernel_tables())
     nbytes = 4 * (2 * N * N * C + N * N + E1 * E2) + tables
     flops = 2.0 * C * E1 * E2 + 2.0 * N * N * C
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"bytes": nbytes, "flops": flops, **bound(nbytes, flops)}
 
 
 def bf16_agrees(y, want, kept):
@@ -1822,9 +1863,10 @@ def grad_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed):
     torch.autograd.backward(assoc_matvec(*ys, *edges, transpose=transpose),
                             dY)
     torch.cuda.synchronize()
+    geom = k6.grad_geometry(B, N, N, C, E, E, X.element_size())
     r = {"kernel": "assoc_grad", "B": B, "N": N, "E": E, "C": C,
          "transpose": transpose, "dX_kernel": "assoc_large" if large
-         else "assoc_bucket",
+         else "assoc_bucket", "path": geom.path, "passes": geom.passes,
          "assoc_edges": float((n_e[:, 0] * n_e[:, 1]).sum()),
          "err_vs_plain": max(relerr(got[0], want[0]),
                              relerr(got[1], want[1])),
@@ -1850,22 +1892,57 @@ def grad_case(rng, B, N, E, C, n_lo, n_hi, transpose, flush, timed):
         nbytes = (4 * (2 * B * N * N * C + B * E * E + B * N * N)
                   + 4 * 4 * B * E + 2 * B * E)
         flops = 2.0 * C * r["assoc_edges"] + 2.0 * B * N * N * C
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
         call = lambda: k6.assoc_edge_grad(dY, X, *edges,
                                           transpose=transpose, **masks)
+        dx_call = lambda: kern(dY, Kp, Ke, *edges, transpose=not transpose,
+                               **masks)
         r.update(
             ms=time_ms(call, flush=flush),
+            # the kernels alone (torch.profiler), without the wrappers' host
+            # time that `ms` may hold
+            kernel_ms=tune_univ.profiled_ms(call, "assoc_grad_kernel",
+                                            flush=flush),
             plain_ms=time_ms(lambda: k6.assoc_edge_grad_plain(
                 dY, X, *edges, transpose=transpose, **masks), reps=5,
                 flush=flush),
-            dX_ms=time_ms(lambda: kern(dY, Kp, Ke, *edges,
-                                       transpose=not transpose, **masks),
-                          flush=flush),
-            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            dX_ms=time_ms(dx_call, flush=flush),
+            dX_kernel_ms=tune_univ.profiled_ms(
+                dx_call, r["dX_kernel"] + "_kernel", flush=flush),
+            bytes=nbytes, flops=flops, **bound(nbytes, flops))
         r.update(sddmm_library(dY, X, edges, transpose, n_e, want, flush))
+        r.update(dx_library(dY, Kp, Ke, edges, transpose, n_e, dX_plain,
+                            flush))
     return r
+
+
+def dx_library(dY, Kp, Ke, edges, transpose, n_e, want, flush, bf16=False):
+    """The dX launch's own bound and library call: K2 / K3 on dY with the
+    roles swapped is the forward's function on other inputs, so its library
+    call is `torch.sparse.mm` of K with the roles swapped (f32, on dY as
+    the kernel reads it) and its bound the forward's bytes with dY for X
+    (bf16 dY: read in 2 bytes, Kp = 0 still read)."""
+    B, N, _, C = dY.shape
+    E = Ke.shape[1]
+    e_real = float((n_e[:, 0] * n_e[:, 1]).sum())
+    index_bytes = 4 * B * (4 * E + 2 * (N + 1))
+    nbytes = ((6 if bf16 else 8) * B * N * N * C + 4 * B * N * N
+              + 4 * e_real + index_bytes)
+    flops = 2.0 * C * e_real + 2.0 * B * N * N * C
+    out = {}
+    out["dX_bound_ms"], out["dX_bound_by"] = bound(nbytes, flops).values()
+    roles = (edges[0], edges[1], edges[2], edges[3]) if transpose else \
+        (edges[1], edges[0], edges[3], edges[2])
+    lib = sparse_library(dY.float(), Kp, Ke, *roles, n_e)
+    err = relerr(lib(), want)
+    torch.cuda.synchronize()
+    if not err <= 1e-5:
+        fail(f"the dX library call disagrees with the plain version: "
+             f"{err:.3e}")
+    out["dX_library_ms"] = time_ms(lib, reps=10, flush=flush)
+    if bf16:
+        out.update({"dX_" + k: v for k, v in
+                    library_bf16(lib.K, lib.X, flush).items()})
+    return out
 
 
 def sddmm_library(dY, X, edges, transpose, n_e, want, flush):
@@ -1936,8 +2013,17 @@ def phase_backward_kernels():
                                   flush, timed=transpose))
     rows.append(grad_case(rng, 2, 256, 1536, 17, 200, 256, True, flush,
                           timed=True))
+    # K6's other paths: C=33 (two passes over each row's run, staged) and
+    # C=64 at N=256 (two X rows over the staging budget: global memory)
+    rows.append(grad_case(rng, 8, 64, 384, 33, 40, 64, True, flush,
+                          timed=False))
+    rows.append(grad_case(rng, 2, 256, 1536, 64, 200, 256, False, flush,
+                          timed=False))
     for r in rows:
         say("[15 backward] " + json.dumps(r))
+    paths = {r["path"] for r in rows}
+    if paths != {"staged", "global"} or max(r["passes"] for r in rows) < 2:
+        fail(f"phase 15 did not run every path of K6's launcher: {paths}")
     restore_counts(saved)
     del flush
     return rows
@@ -2037,21 +2123,28 @@ def grad_case_bf16(rng, B, N, E, C, n_lo, n_hi, transpose, flush):
     nbytes = (4 * B * N * N * C + 2 * B * N * N * C + 4 * B * E * E
               + 4 * B * N * N + 4 * 4 * B * E + 2 * B * E)
     flops = 2.0 * C * r["assoc_edges"] + 2.0 * B * N * N * C
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    call = lambda: k6.assoc_edge_grad(dY, Xb, *edges, transpose=transpose,
+                                      **masks)
     r.update(
-        ms=time_ms(lambda: k6.assoc_edge_grad(dY, Xb, *edges,
-                                              transpose=transpose, **masks),
-                   flush=flush),
+        ms=time_ms(call, flush=flush),
+        kernel_ms=tune_univ.profiled_ms(call, "assoc_grad_kernel",
+                                        flush=flush),
+        dX_kernel_ms=tune_univ.profiled_ms(
+            dx_call, r["dX_kernel"] + "_kernel", flush=flush),
         plain_ms=time_ms(lambda: k6.assoc_edge_grad_plain(
             dY, Xb, *edges, transpose=transpose, **masks), reps=5,
             flush=flush),
         dX_ms=time_ms(dx_call, flush=flush),
-        bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        bytes=nbytes, flops=flops, **bound(nbytes, flops))
     plain_f32 = k6.assoc_edge_grad_plain(dY, Xb.float(), *edges,
                                          transpose=transpose, **masks)
     r.update(sddmm_library(dY, Xb, edges, transpose, n_e, plain_f32, flush))
+    # the library has no bf16 rounding of the products: held against the
+    # plain f32 product on the same bf16 values
+    r.update(dx_library(dY.bfloat16(), zero, Ke, edges, transpose, n_e,
+                        assoc_matvec(dY.bfloat16().float(), zero, Ke,
+                                     *edges, transpose=not transpose),
+                        flush, bf16=True))
     return r
 
 
@@ -2070,6 +2163,34 @@ def phase_backward_bf16():
     rows.append(grad_case_bf16(rng, 2, 256, 1536, 17, 200, 256, True, flush))
     for r in rows:
         say("[18 backward bf16] " + json.dumps(r))
+    # K6's bf16 instantiation on its other paths: C=33 (two passes,
+    # staged) and C=100 at N=256 (global memory), against the plain version
+    paths = {k6.grad_geometry(8, 64, 64, 17, 384, 384, 2).path}
+    for B, N, E, C, n_lo in ((8, 64, 384, 33, 40), (2, 256, 1536, 100, 200)):
+        X, _, _, s1, d1, s2, d2, m1, m2, _ = bucket_inputs(
+            rng, B, N, E, C, n_lo, N)
+        Xb = X.bfloat16()
+        dY = torch.randn(X.shape, device=DEV)
+        args = (dY, Xb, s1, d1, s2, d2)
+        masks = dict(e1_mask=m1, e2_mask=m2)
+        got = k6.assoc_edge_grad(*args, transpose=True, **masks)
+        again = k6.assoc_edge_grad(*args, transpose=True, **masks)
+        want = k6.assoc_edge_grad_plain(*args, transpose=True, **masks)
+        torch.cuda.synchronize()
+        g = k6.grad_geometry(B, N, N, C, E, E, 2)
+        paths.add(g.path)
+        r = {"kernel": "assoc_grad", "x_dtype": "bfloat16", "B": B, "N": N,
+             "C": C, "path": g.path, "passes": g.passes,
+             "dKe_ulps_off": ulps_off(got[0], want[0]),
+             "dKp_err_vs_plain": relerr(got[1], want[1]),
+             "bit_reproducible": all(torch.equal(a, b)
+                                     for a, b in zip(got, again))}
+        say("[18 backward bf16] " + json.dumps(r))
+        if r["dKe_ulps_off"] or not (r["dKp_err_vs_plain"] <= 1e-5
+                                     and r["bit_reproducible"]):
+            fail(f"K6 bf16 disagrees with its plain version: {r}")
+    if paths != {"staged", "global"}:
+        fail(f"phase 18 did not run every path of K6's launcher: {paths}")
     restore_counts(saved)
     del flush
     return rows
@@ -2111,6 +2232,99 @@ class GreedyTap:
             return fn()
         finally:
             t_ngm.greedy_perm_batch = self.real
+
+
+class OutGradTap:
+    """While installed on a model, records the gradient that reaches the
+    output of the backbone (its taps: the node and edge feature maps that
+    models/ngm.py aligns at the keypoints, and the global feature) and of
+    every convolution, BatchNorm and max-pool of models/backbone.py, by
+    name, in the order the forward ran them; and the forward output of each
+    residual block (its final ReLU), to count the gates the two sides
+    open differently."""
+
+    def __init__(self, model):
+        self.model = model
+        self.grads = {}
+        self.order = []
+        self.acts = {}
+
+    def _keep(self, name, t):
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            self.order.append(name)
+            t.register_hook(lambda g, name=name: self.grads.__setitem__(
+                name, g.detach().float().cpu()))
+
+    def __enter__(self):
+        bb = self.model.backbone
+        self.handles = []
+
+        def taps(mod, inp, out):
+            node_maps, edges, glob = out
+            for i, m in enumerate(node_maps):
+                self._keep(f"tap.node_map{i}", m)
+            self._keep("tap.edge_map", edges)
+            self._keep("tap.global_feat", glob)
+        self.handles.append(bb.register_forward_hook(taps))
+        kinds = (torch.nn.Conv2d, torch.nn.BatchNorm2d, torch.nn.MaxPool2d)
+        for name, mod in bb.named_modules():
+            if isinstance(mod, t_backbone.BasicBlock):
+                self.handles.append(mod.register_forward_hook(
+                    lambda m, i, o, name=name: self.acts.__setitem__(
+                        name, o.detach().float().cpu())))
+            if isinstance(mod, kinds):
+                self.handles.append(mod.register_forward_hook(
+                    lambda m, i, o, name=name: self._keep(
+                        f"backbone.{name}", o)))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def top_down(self):
+        """Names from the taps down to the first convolution."""
+        taps = [n for n in self.order if n.startswith("tap.")]
+        return taps + [n for n in reversed(self.order)
+                       if not n.startswith("tap.")]
+
+
+def backbone_layer_report(card, cpu):
+    """Each recorded output gradient of the card against the CPU's, from
+    the top down: max |card - cpu| over the CPU tensor's largest value, and
+    the first layer past 1e-3 of it."""
+    rows = []
+    for n in cpu.top_down():
+        a, b = card.grads.get(n), cpu.grads.get(n)
+        if a is None or b is None:
+            continue
+        rows.append([n, float((a - b).abs().max())
+                     / max(float(b.abs().max()), 1e-30)])
+    first = next((n for n, e in rows if e > 1e-3), None)
+    # residual blocks whose final ReLU is open on one side and shut on the
+    # other, and how far from 0 the larger of the two values is there
+    gates = {}
+    for n, b in cpu.acts.items():
+        a = card.acts[n]
+        flip = (a > 0) != (b > 0)
+        gates[n] = [int(flip.sum()), float(torch.maximum(a, b)[flip].max())
+                    if flip.any() else 0.0, int(b.numel())]
+    return {"rel_err_top_down": rows, "first_past_1e-3": first,
+            "relu_gate_flips": gates}
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms and no autotuning, while in use."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
 
 
 def train_parity_config():
@@ -2159,18 +2373,27 @@ def phase_train_parity():
     saved = read_counts()
     tap = GreedyTap()
     out = {}
-    for stage in default_stages()[:2]:
+    for i, stage in enumerate(default_stages()[:2]):
         before_g = {k: v.detach().cpu().clone()
                     for k, v in model_g.state_dict().items()}
         before_c = {k: v.clone() for k, v in model_c.state_dict().items()}
-        with tf32_off():
+        first = i == 0
+        # stage 1 (the backbone trains): the gradient at the backbone's
+        # taps and at each of its layers, and the same step again on the
+        # card with cuDNN's deterministic algorithms
+        model_d = copy.deepcopy(model_g) if first else None
+        taps_g, taps_c = OutGradTap(model_g), OutGradTap(model_c)
+        with tf32_off(), (taps_g if first else contextlib.nullcontext()):
             t = time.time()
             mg, gg = tap.run("record",
                              lambda: step_and_grads(model_g, bg, stage))
             torch.cuda.synchronize()
             t_g = time.time() - t
+        picks = list(tap.picks)
         t = time.time()
-        mc, gc = tap.run("replay", lambda: step_and_grads(model_c, bc, stage))
+        with taps_c if first else contextlib.nullcontext():
+            mc, gc = tap.run("replay",
+                             lambda: step_and_grads(model_c, bc, stage))
         t_c = time.time() - t
         part = {n: partition_of(n.split(".")[0]) for n in gc}
         pmax = {}
@@ -2228,6 +2451,11 @@ def phase_train_parity():
                "bn_stats_rel_err_max": max(stats_err.values(), default=0.0),
                "n_grads": len(gc), "frozen_changed": frozen_changed}
         say("[16 train parity] " + json.dumps(row))
+        if first:
+            row["backbone_diagnostic"] = backbone_diagnostic(
+                model_d, bg, stage, picks, taps_g, taps_c, gg, gc, part,
+                pmax)
+            del model_d
         if any(not e <= (1e-2 if k in ("ks_loss", "total_loss") else 1e-4)
                for k, e in loss_err.items()):
             fail(f"16 train parity: loss terms differ: {loss_err}")
@@ -2244,6 +2472,50 @@ def phase_train_parity():
         out[stage.name] = row
     restore_counts(saved)
     return out
+
+
+def backbone_diagnostic(model_d, batch, stage, picks, taps_g, taps_c, gg,
+                        gc, part, pmax):
+    """Queue C 2, phase 16's stage-1 step: the backbone's gradient on the
+    card against the CPU, from the top down — the gradient at the taps,
+    then at each convolution, BatchNorm and max-pool of the backbone — as
+    phase 16 ran it (cuDNN's defaults, TF32 off) and again on a copy of the
+    same weights with cuDNN's deterministic algorithms and no autotuning,
+    the same batch and picks. Reported, not held: each layer's error over
+    its largest value, the first layer past 1e-3, and the backbone's worst
+    parameter gradient in both runs."""
+    tap = GreedyTap(same_count=False)
+    tap.picks = list(picks)
+    taps_d = OutGradTap(model_d)
+    with tf32_off(), cudnn_deterministic(), taps_d:
+        _, gd = tap.run("replay", lambda: step_and_grads(model_d, batch,
+                                                         stage))
+        torch.cuda.synchronize()
+
+    def worst(gg):
+        errs = {n: float((gg[n] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-2 * pmax[part[n]])
+            for n, g in gc.items() if part[n] == "backbone"}
+        return sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+    rep = {"default": backbone_layer_report(taps_g, taps_c),
+           "deterministic": backbone_layer_report(taps_d, taps_c),
+           "param_worst_default": worst(gg),
+           "param_worst_deterministic": worst(gd),
+           "match_count_cpu_minus_card_deterministic": tap.count_diffs}
+    for k in ("default", "deterministic"):
+        r = rep[k]
+        say(f"[16 backbone {k}] first layer past 1e-3 of its largest "
+            f"value: {r['first_past_1e-3']}; top down: "
+            + json.dumps([[n, round(e, 6)] for n, e in
+                          r["rel_err_top_down"]]))
+        say(f"[16 backbone {k}] residual blocks' ReLU gates open on one "
+            f"side only [count, largest value there, elements]: "
+            + json.dumps(r["relu_gate_flips"]))
+    say("[16 backbone] worst parameter gradients, default / deterministic: "
+        + json.dumps([rep["param_worst_default"],
+                      rep["param_worst_deterministic"]]))
+    return rep
 
 
 def profile_train_step():
@@ -2550,6 +2822,119 @@ def phase_evaluate_bf16(pd32, root_large, index_dir, res7, res9):
     return out
 
 
+@contextlib.contextmanager
+def plain_assoc():
+    """The association matvec's plain versions (forward, dX and K6) in place
+    of its kernels inside ops.assoc, while in use: a diagnostic only."""
+    plain = {"assoc_matvec_bucket": k23.assoc_matvec_bucket_plain,
+             "assoc_matvec_large": k23.assoc_matvec_large_plain,
+             "assoc_edge_grad": k6.assoc_edge_grad_plain}
+    real = {n: getattr(ops_assoc, n) for n in plain}
+    for n, f in plain.items():
+        setattr(ops_assoc, n, f)
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(ops_assoc, n, f)
+
+
+# phase 21: the card's bf16 gradient may be further from the f32 step's than
+# the CPU's bf16 gradient by at most this much in cosine, per partition
+# (the reason is in CHANGES.md)
+F32_MARGIN = 0.02
+
+
+def cosine(a, b):
+    return float(torch.nn.functional.cosine_similarity(
+        a.double().reshape(-1), b.double().reshape(-1), dim=0))
+
+
+def bf16_step_diagnostic(model_f, model_p, host, stage, picks, gg, gc):
+    """Queue C 1, phase 21's bf16 step: (a) the f32 step of the same
+    weights, batch and picks on the card as the yardstick: each partition's
+    and each tensor's cosine to it, of the card's bf16 gradient and of the
+    CPU's (per tensor only above phase 16's floor: 1 % of its partition's
+    largest f32 gradient; the tensors below it are listed); (b) the same
+    bf16 step on the card with the association matvec's plain versions in
+    place of K2 / K3 / K6 (no kernel launched), against the kernels' run;
+    (c) for each tensor below the floor: the f32 step's card-vs-CPU cosine
+    (the CPU's f32 step replays the same picks), each side's bf16 cosine
+    to its own f32 step, the two bf16 sides' cosine and (b)'s."""
+    def replay(model, ctx, dev=DEV):
+        tap = GreedyTap(same_count=False)
+        tap.picks = list(picks)
+        with tf32_off(), ctx:
+            _, grads = tap.run("replay", lambda: step_and_grads(
+                model, host.to(dev), stage))
+            torch.cuda.synchronize()
+        return grads, tap.count_diffs
+
+    gf, counts_f = replay(model_f, contextlib.nullcontext())
+    gfc, _ = replay(cpu_copy(model_f, train_parity_config()),
+                    contextlib.nullcontext(), "cpu")
+    before = read_counts()
+    gp, counts_p = replay(model_p, plain_assoc())
+    launched = {k: v - before[k] for k, v in read_counts().items()
+                if v != before[k]}
+    if launched:
+        fail(f"21 diagnostic: kernels launched with the plain versions in "
+             f"place: {launched}")
+    parts = {}
+    for n in gf:
+        parts.setdefault(partition_of(n.split(".")[0]), []).append(n)
+    pmax = {p: max(float(gf[n].abs().max()) for n in names)
+            for p, names in parts.items()}
+    above = {n for p, names in parts.items() for n in names
+             if float(gf[n].abs().max()) >= 1e-2 * pmax[p]}
+    cat = lambda g, names: torch.cat([g[n].double().reshape(-1)
+                                      for n in names])
+    part_of = {n: p for p, names in parts.items() for n in names}
+    out = {"partition_cosine_to_f32": {}, "tensor_cosine_to_f32_lowest": {},
+           "below_1pct_floor": sorted(set(gf) - above),
+           "match_count_f32_minus_card": counts_f}
+    # (c) below the floor: [largest f32 value / its partition's largest,
+    # f32 card-vs-CPU cosine, card bf16 to card f32, CPU bf16 to CPU f32,
+    # card bf16 to CPU bf16, the plain versions' bf16 step to the kernels']
+    out["below_floor_cosines"] = {
+        n: [float(gf[n].abs().max()) / pmax[part_of[n]],
+            cosine(gf[n], gfc[n]), cosine(gg[n], gf[n]),
+            cosine(gc[n], gfc[n]), cosine(gg[n], gc[n]),
+            cosine(gp[n], gg[n])] for n in out["below_1pct_floor"]}
+    for side, g in (("card", gg), ("cpu", gc)):
+        out["partition_cosine_to_f32"][side] = {
+            p: cosine(cat(g, names), cat(gf, names))
+            for p, names in parts.items()}
+        out["tensor_cosine_to_f32_lowest"][side] = sorted(
+            ((n, cosine(g[n], gf[n])) for n in above),
+            key=lambda kv: kv[1])[:5]
+    out["plain_versions"] = {
+        "partition_cosine_to_kernels": {
+            p: cosine(cat(gp, names), cat(gg, names))
+            for p, names in parts.items()},
+        "partition_rel_err_to_kernels": {
+            p: max(float((gp[n] - gg[n]).abs().max()) for n in names)
+            / max(max(float(gg[n].abs().max()) for n in names), 1e-30)
+            for p, names in parts.items()},
+        "tensor_cosine_to_kernels_lowest": sorted(
+            ((n, cosine(gp[n], gg[n])) for n in above),
+            key=lambda kv: kv[1])[:5],
+        "match_count_plain_minus_card": counts_p}
+    say("[21 diagnostic] partition cosines to the f32 step, card / CPU: "
+        + json.dumps(out["partition_cosine_to_f32"]))
+    say("[21 diagnostic] lowest tensor cosines to the f32 step (above the "
+        "1 % floor), card / CPU: "
+        + json.dumps(out["tensor_cosine_to_f32_lowest"]))
+    say(f"[21 diagnostic] {len(out['below_1pct_floor'])} tensors below the "
+        f"1 % floor [largest f32 value / partition's largest, f32 card-vs-"
+        f"CPU cosine, card bf16 to card f32, CPU bf16 to CPU f32, card bf16 "
+        f"to CPU bf16, plain versions' bf16 step to the kernels']: "
+        + json.dumps(out["below_floor_cosines"]))
+    say("[21 diagnostic] the bf16 step with the plain versions against the "
+        "kernels' step: " + json.dumps(out["plain_versions"]))
+    return out
+
+
 def phase_train_parity_bf16():
     """Phase 21a: one --bf16 train step of stage 1 at full width (B=2,
     sk_tau 0.05, phase 16's batch and weights) on the card and on the
@@ -2569,6 +2954,11 @@ def phase_train_parity_bf16():
         cfg.ngm, compute_dtype="bfloat16"))
     model_g = build_model(cfg, device="cuda", seed=SEED)
     model_c = cpu_copy(model_g, cfg)
+    # Queue C 1: the f32 step of the same weights (the yardstick), and the
+    # same bf16 step with the association matvec's plain versions
+    model_f = build_model(train_parity_config(), device="cuda", state_dict={
+        k: v.clone() for k, v in model_g.state_dict().items()})
+    model_p = copy.deepcopy(model_g)
     host = synthetic_pair_batch(cfg, 2, genuine_ratio=0.5, n_range=(40, 60),
                                 seed=SEED + 16)
     saved = read_counts()
@@ -2581,8 +2971,10 @@ def phase_train_parity_bf16():
         mg, gg = tap.run("record",
                          lambda: step_and_grads(model_g, host.to(DEV), stage))
         torch.cuda.synchronize()
+    picks = list(tap.picks)
     mc, gc = tap.run("replay", lambda: step_and_grads(model_c,
                                                       host.to("cpu"), stage))
+    diag = bf16_step_diagnostic(model_f, model_p, host, stage, picks, gg, gc)
     restore_counts(saved)
     if set(gg) != set(gc):
         fail("21 train parity bf16: the card and the CPU trained other "
@@ -2598,19 +2990,33 @@ def phase_train_parity_bf16():
         a = torch.cat([gg[n].double().reshape(-1) for n in names])
         b = torch.cat([gc[n].double().reshape(-1) for n in names])
         cos[part] = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-    per_tensor = {n: float(torch.nn.functional.cosine_similarity(
-        gg[n].double().reshape(-1), gc[n].double().reshape(-1), dim=0))
-        for n in gc}
+    # per tensor only above phase 16's floor (1 % of its partition's
+    # largest CPU gradient): below it a gradient is zero up to rounding
+    pmax = {p: max(float(gc[n].abs().max()) for n in names)
+            for p, names in parts.items()}
+    floor = {n for p, names in parts.items() for n in names
+             if float(gc[n].abs().max()) < 1e-2 * pmax[p]}
+    per_tensor = {n: cosine(gg[n], gc[n]) for n in gc if n not in floor}
     loss = {k: {"card": mg[k], "cpu": mc[k],
                 "rel_err": abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)}
             for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
     row = {"loss": loss, "partition_cosine": cos,
            "tensor_cosine_min": sorted(per_tensor.items(),
                                        key=lambda kv: kv[1])[:3],
+           "tensors_below_1pct_floor": sorted(floor),
            "x_dtypes": dt.only_bf16("21 train parity bf16"),
            "match_count_cpu_minus_card": tap.count_diffs,
-           "n_grads": len(gc)}
+           "n_grads": len(gc), "diagnostic": diag}
     say("[21 train parity bf16] " + json.dumps(row))
+    low = {part: (diag["partition_cosine_to_f32"]["card"][part],
+                  diag["partition_cosine_to_f32"]["cpu"][part])
+           for part in cos
+           if not diag["partition_cosine_to_f32"]["card"][part]
+           >= diag["partition_cosine_to_f32"]["cpu"][part] - F32_MARGIN}
+    if low:
+        fail(f"21 train parity bf16: the card's gradient is further from "
+             f"the f32 step's than the CPU's by more than {F32_MARGIN} "
+             f"(card, cpu): {low}")
     if any(not v["rel_err"] <= 5e-2 for v in loss.values()):
         fail(f"21 train parity bf16: loss terms differ: {loss}")
     if any(not c >= (0.9 if part == "backbone" else 0.99)
@@ -2645,6 +3051,46 @@ def phase_train_bf16(tmp, runs32):
             "x_dtypes": tap.only_bf16("21 train bf16")}
 
 
+def phase_parent_timing(parent):
+    """With `--parent DIR` (an unpacked checkout of the parent commit):
+    fpmatch_tpu_torch/scripts/time_assoc_grad.py on the parent's tree and
+    on this one in turns (parent, this, this, parent), on the same inputs:
+    K2 in f32 and bf16, the bf16 dX in both orientations, K6 in f32 and
+    bf16. Returns {(row, N, C): {"parent_ms": [...], "ms": [...],
+    "same_bits_as_parent": bool}}; fails if a row's two calls differ."""
+    script = ROOT / "fpmatch_tpu_torch" / "scripts" / "time_assoc_grad.py"
+    with tempfile.TemporaryDirectory(prefix="fpm_parent_") as tmp:
+        dump = f"{tmp}/parent.pt"
+        table = {}
+        for tree, extra in ((parent, ["--dump", dump]),
+                            (ROOT, ["--against", dump]),
+                            (ROOT, ["--against", dump]), (parent, [])):
+            p = subprocess.run([sys.executable, str(script), "--tree",
+                                str(tree), *extra], capture_output=True,
+                               text=True, timeout=900)
+            if p.returncode != 0:
+                fail(f"time_assoc_grad.py on {tree}: {p.stdout[-2000:]}"
+                     f"{p.stderr[-2000:]}")
+            for line in p.stdout.splitlines():
+                if not line.startswith("{"):
+                    continue
+                r = json.loads(line)
+                t = table.setdefault(f"{r['row']}/N{r['N']}/C{r['C']}", {
+                    "parent_ms": [], "ms": [], "parent_kernel_ms": [],
+                    "kernel_ms": [], "same_bits_as_parent": True})
+                side = "" if tree == ROOT else "parent_"
+                t[side + "ms"].append(r["ms"])
+                t[side + "kernel_ms"].append(r["kernel_ms"])
+                if "same_bits_as_other" in r:
+                    t["same_bits_as_parent"] &= r["same_bits_as_other"]
+    for k, t in table.items():
+        say(f"[15 parent] {k}: parent {t['parent_ms']} ms (kernel alone "
+            f"{t['parent_kernel_ms']}), this tree {t['ms']} ms (kernel alone "
+            f"{t['kernel_ms']}; turns parent, this, this, parent); same bits "
+            f"as the parent: {t['same_bits_as_parent']}")
+    return table
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -2660,7 +3106,9 @@ def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "shapes": [{k: r[k] for k in shape_keys} for r in timed]}
+        **{k: main[k] for k in ("ms_bf16", "bound_ms_bf16",
+                                "library_bf16_ms") if k in main},
+        "shapes": [{k: r.get(k) for k in shape_keys} for r in timed]}
 
 
 def main():
@@ -2730,6 +3178,9 @@ def main():
                                      res7, res9)
         parity21 = phase_train_parity_bf16()
         train21 = phase_train_bf16(tmp, train_runs)
+    parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
+                                                 + 1]).resolve())
+              if "--parent" in sys.argv[1:] else None)
     # the sweep times K4's (32, 128) f32 row; phase 3 the rest of that row
     main4 = next(r for r in rows4 if "bound_ms" in r)
     main4.update(next({k: r[k] for k in ("ms", "kernel_ms")}
@@ -2743,18 +3194,22 @@ def main():
 
     keys1 = ("C", "N", "E1", "E2", "S1", "S2", "ms", "kernel_ms",
              "ms_warm_l2", "ms_bf16", "plain_ms", "noplan_ms", "library_ms",
-             "bound_ms", "bound_by", "bytes", "flops")
+             "library_bf16_ms", "bound_ms", "bound_ms_bf16", "bound_by",
+             "bytes", "flops")
     keys23 = ("B", "N", "E", "C", "assoc_edges", "ms", "kernel_ms",
               "ms_warm_l2", "ms_bf16", "plain_ms", "ops_ms", "library_ms",
-              "bound_ms", "bound_by", "bytes", "flops")
+              "library_bf16_ms", "bound_ms", "bound_ms_bf16", "bound_by",
+              "bytes", "flops")
     keys3 = keys23 + ("path", "k2_ms", "k2_ms_bf16", "k2_kernel_ms")
     keys4 = ("n", "C", "r1", "r2", "prec", "b1", "b2", "spill1", "spill2",
              "ker_mb", "ms", "kernel_ms", "gather_ms",
              "plain_ms", "k1_ms", "library_ms", "bound_ms", "bound_by",
              "bytes", "flops")
-    keys15 = ("B", "N", "E", "C", "assoc_edges", "ms", "plain_ms", "dX_ms",
-              "dX_kernel", "library_ms", "library_bf16_ms", "library_nnz",
-              "bound_ms", "bound_by", "bytes", "flops")
+    keys15 = ("B", "N", "E", "C", "assoc_edges", "path", "ms", "kernel_ms",
+              "plain_ms", "dX_ms", "dX_kernel_ms", "dX_kernel",
+              "dX_bound_ms", "dX_library_ms",
+              "library_ms", "library_bf16_ms", "library_nnz", "bound_ms",
+              "bound_by", "bytes", "flops")
     keys5 = ("shape", "ms", "plain_ms", "library_ms", "first_ms",
              "second_ms", "bound_ms", "bound_by", "bytes")
     of = lambda name: [r for r in rows23 if r["kernel"] == name]
@@ -2792,9 +3247,47 @@ def main():
     ks[1]["launches_bf16"] = eval20["assoc_bucket"]["launches"][
         "assoc_bucket"]
     ks[2]["launches_bf16"] = eval20["assoc_large"]["launches"]["assoc_large"]
-    ks[1]["dX_bf16_ms"] = next(r["dX_ms"] for r in rows18
-                               if (r["N"], r["C"]) == (64, 17))
-    ks[2]["dX_bf16_ms"] = next(r["dX_ms"] for r in rows18 if r["N"] == 256)
+    # the bf16 dX launch, keyed by its own orientation (the forward's
+    # flipped); K3's at N=256 (the forward there is K^T)
+    ks[1]["dX_bf16_ms"] = {f"transpose={not r['transpose']}": r["dX_ms"]
+                           for r in rows18 if (r["N"], r["C"]) == (64, 17)}
+    ks[2]["dX_bf16_ms"] = {f"transpose={not r['transpose']}": r["dX_ms"]
+                           for r in rows18 if r["N"] == 256 and "dX_ms" in r}
+    for k, n in ((ks[1], 64), (ks[2], 256)):
+        k["dX_bf16_bound_ms"], k["dX_bf16_library_ms"] = next(
+            (r["dX_bound_ms"], r["dX_library_ms"]) for r in rows18
+            if "dX_bound_ms" in r and (r["N"], r["C"]) == (n, 17))
+    if parent is not None:
+        # the kernels this PR changed, timed with the parent's tree in turns:
+        # each parent median beside this tree's median from the same turns
+        # (`ms` above is phase 15's, another measurement)
+        pick = lambda row, side: float(np.median(parent[row + "/N64/C17"]
+                                                 [side]))
+        for k, key, row in ((ks[1], "ms", "fwd_f32"),
+                            (ks[1], "ms_bf16", "fwd_bf16"),
+                            (ks[5], "ms", "k6_f32"),
+                            (ks[6], "ms", "k6_bf16")):
+            k[key + "_parent"] = pick(row, "parent_ms")
+            k[key + "_this_tree"] = pick(row, "ms")
+        for side, key in (("parent_ms", "parent"), ("ms", "this_tree")):
+            ks[1][f"dX_bf16_ms_{key}"] = {
+                "transpose=False": pick("dx_bf16_T", side),
+                "transpose=True": pick("dx_bf16_N", side)}
+        for k, row in ((ks[1], "fwd_f32"), (ks[5], "k6_f32"),
+                       (ks[6], "k6_bf16")):
+            t = parent[f"{row}/N64/C17"]
+            if None not in t["parent_kernel_ms"] + t["kernel_ms"]:
+                k["kernel_ms_parent"] = float(np.median(
+                    t["parent_kernel_ms"]))
+                k["kernel_ms_this_tree"] = float(np.median(t["kernel_ms"]))
+        for k, rows in ((ks[1], ("fwd_f32", "fwd_bf16", "dx_bf16_T",
+                                 "dx_bf16_N")), (ks[5], ("k6_f32",)),
+                        (ks[6], ("k6_bf16",))):
+            k["vs_parent"] = {r: parent[r] for r in parent
+                              if r.split("/")[0] in rows}
+        same = {r: t["same_bits_as_parent"] for r, t in parent.items()}
+        if not all(same.values()):
+            fail(f"outputs differ from the parent's bits: {same}")
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms

@@ -40,7 +40,9 @@ memory-bound; see the note at the top of the source. Inference only: like
 the TPU kernels they have no backward of their own.
 
 The bucket kernel (K2) gives a warp a tile of one output row and gathers X
-from L2. The any-size kernel (K3) gives a block one output row and a slice
+from L2; two lanes share a cell's channels (`_cells.bucket_tiling`), and
+with bf16 X it multiplies two channels at a time with one packed bf16
+multiply. The any-size kernel (K3) gives a block one output row and a slice
 of up to 32 channels: it streams each of the row's (Ke row, X row) pairs
 through shared memory (cp.async, two buffers), a thread per column holds
 the slice's channels in registers and reads each index and Ke value once
@@ -61,7 +63,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from . import _build
-from ._cells import channel_tiling
+from ._cells import bucket_tiling
 
 # the TPU kernels these replace (file:line of the Pallas kernel bodies)
 REPLACES = {"assoc_bucket": "fpmatch_tpu/kernels/assoc_pallas.py:79",
@@ -110,10 +112,12 @@ def _csr(out, inn, n: int, mask):
             inn.long().gather(1, order).int().contiguous(), offs)
 
 
-# the plan of the last call: key -> (the tensors it was made from, plan); the
-# GNN layers of one forward share it
+# the plans of the last two keys: key -> (the tensors it was made from,
+# plan); the GNN layers of one forward share one, and a backward uses both
+# orientations of the same edge lists (dX flips `transpose`, K6 reads the
+# forward's), so each is made once per step
 _memo: "OrderedDict[tuple, tuple]" = OrderedDict()
-_MEMO_SIZE = 1
+_MEMO_SIZE = 2
 
 
 def _version(t: torch.Tensor) -> int:
@@ -127,10 +131,12 @@ def plan_bucket(src1, dst1, src2, dst2, n1: int, n2: int,
                 ) -> BucketPlan:
     """Group both edge lists by scatter endpoint (device ops, no host sync).
 
-    The plan of the last call is kept together with the tensors it was made
-    from (so their memory cannot be reused while it is kept), and returned
-    again when the same tensors — same storage, shape, strides and version
-    counter — come back: the GNN layers of one forward share one plan."""
+    The plans of the last two keys are kept together with the tensors they
+    were made from (so their memory cannot be reused while they are kept),
+    and one is returned again when the same tensors — same storage, shape,
+    strides and version counter — and orientation come back: the GNN layers
+    of one forward share one plan, and their backward (dX in the other
+    orientation, K6 in the forward's) one more."""
     given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
     key = (n1, n2, transpose) + tuple(
         None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
@@ -336,7 +342,7 @@ def _fn(lib, name, n_ptr, n_int):
 def _launch_bucket(X, Kp, Ke, plan: BucketPlan) -> torch.Tensor:
     B, n1, n2, C = X.shape
     X, Kp, Ke = X.contiguous(), Kp.contiguous(), Ke.contiguous()
-    nc, vec = channel_tiling(X)
+    nc, vec = bucket_tiling(X)
     lib = _build.load("assoc_bucket")
     fn = _fn(lib, "fpm_assoc_bucket_bf16" if X.dtype == torch.bfloat16
              else "fpm_assoc_bucket_f32", 10, 8)

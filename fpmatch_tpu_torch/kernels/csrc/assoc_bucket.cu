@@ -36,11 +36,24 @@
 // barrier). Its lanes own cells: L = ceil(min(C, 32) / NC) lanes per cell, NC
 // channels of the cell in registers each, gathered straight from global
 // memory / L2 (a batch of X is a few MB) as 16-byte vectors where C and the
-// alignment allow (otherwise one thread holds all of the cell's channels:
-// NC = 32, or 1 at C = 1; a lane per channel was slower at C = 17). Each Ke
-// value is read once per term for all channels. `Kp * X` is added last and
-// the cell is written once. Shared memory does not depend on N2 or C, so
-// every width runs. No cp.async / TMA / tensor cores.
+// alignment allow; otherwise two lanes share a cell, each holding half of
+// min(C, 32) channels rounded up to even (NC = 10 at C = 17; 1 at C = 1;
+// kernels/_cells.py::bucket_tiling), so a lane carries a dead channel or
+// two at most. Each Ke value is read once per term for
+// all channels. `Kp * X` is added last and the cell is written once. Shared
+// memory does not depend on N2 or C, so every width runs. No cp.async / TMA /
+// tensor cores.
+//
+// K2 with bf16 X works on channel pairs. The cell's values are read as
+// 32-bit words (two channels each; where the cell starts in a word's upper
+// half, one byte permute per pair realigns them, and only words that hold a
+// live channel are read), Ke is rounded to bf16 once per term into both
+// halves of a word, and one packed bf16 multiply (`__hmul2`, round to
+// nearest) forms bf16(bf16(Ke) x) for two channels; the two products widen
+// to f32 by a shift and a mask and are added to the f32 sums in the same
+// order as before. So each term costs one multiply per two channels instead
+// of a multiply, a conversion to bf16 and back per channel, and the result is
+// the same bits as the per-channel form.
 //
 // K3 (any size; the layout of csrc/assoc_univ_v3.cu, batched). A block owns
 // (output row a, sample b, a slice of up to 32 channels) and walks the row's
@@ -77,8 +90,17 @@
 
 namespace {
 
+using fpm_common::div_by;
+using fpm_common::hi_f32;
+using fpm_common::lo_f32;
 using fpm_common::load_channels;
+using fpm_common::load_pairs;
+using fpm_common::magic_of;
+using fpm_common::mul_bf16x2;
 using fpm_common::round_bf16;
+using fpm_common::splat_bf16;
+using fpm_common::stage;
+using fpm_common::stage_padded;
 using fpm_common::store_channels;
 using fpm_common::to_f32;
 
@@ -97,6 +119,29 @@ __device__ __forceinline__ float add_term(float ke, float x, float acc) {
   if constexpr (std::is_same<XT, __nv_bfloat16>::value)
     return acc + round_bf16(ke * x);
   return fmaf(ke, x, acc);
+}
+
+// The NP channel pairs of one cell of bf16 X in global memory as packed
+// words: whole 16-byte vectors with kVec (the launcher checked C and the
+// alignment), else `load_pairs` (the words that hold one of the n live
+// channels).
+template <int NP, bool kVec>
+__device__ __forceinline__ void load_pair_words(const __nv_bfloat16* p, int n,
+                                                unsigned (&w)[NP]) {
+  if constexpr (kVec) {
+    static_assert(NP % 4 == 0, "whole 16-byte vectors");
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int k = 0; k < NP / 4; ++k) {
+      const uint4 u = __ldg(v + k);
+      w[4 * k] = u.x;
+      w[4 * k + 1] = u.y;
+      w[4 * k + 2] = u.z;
+      w[4 * k + 3] = u.w;
+    }
+  } else {
+    load_pairs<NP, true>(p, n, w);
+  }
 }
 
 // ---------------------------------------------------------------- bucket scale
@@ -119,6 +164,9 @@ __global__ void __launch_bounds__(kWarps * 32) assoc_bucket_kernel(
     const int* __restrict__ offs2,   // (B, N2 + 1)
     float* __restrict__ Y,           // (B, N1, N2, C)
     BucketGeom g) {
+  // bf16 X with an even number of channels a lane: packed pairs
+  constexpr bool kPairs =
+      std::is_same<XT, __nv_bfloat16>::value && NC % 2 == 0;
   __shared__ int2 run1[kWarps][32];
   const int wi = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -163,11 +211,25 @@ __global__ void __launch_bounds__(kWarps * 32) assoc_bucket_kernel(
       const XT* xc = Xb + (long long)in2[p] * g.C;
       for (int r = 0; r < n; ++r) {
         const int2 u = run1[wi][r];
-        const float kv = ke_for<XT>(kc[(long long)u.x * g.E2]);
-        float x[NC];
-        load_channels<XT, NC, kVec>(xc + (long long)u.y * rowX, nc, x);
+        if constexpr (kPairs) {
+          // bf16(bf16(Ke) x) for two channels per packed multiply
+          const unsigned kk = splat_bf16(kc[(long long)u.x * g.E2]);
+          unsigned w[NC / 2];
+          load_pair_words<NC / 2, kVec>(xc + (long long)u.y * rowX, nc, w);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] = add_term<XT>(kv, x[c], acc[c]);
+          for (int k = 0; k < NC / 2; ++k) {
+            const unsigned t = mul_bf16x2(kk, w[k]);
+            acc[2 * k] += lo_f32(t);
+            acc[2 * k + 1] += hi_f32(t);
+          }
+        } else {
+          const float kv = ke_for<XT>(kc[(long long)u.x * g.E2]);
+          float x[NC];
+          load_channels<XT, NC, kVec>(xc + (long long)u.y * rowX, nc, x);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            acc[c] = add_term<XT>(kv, x[c], acc[c]);
+        }
       }
     }
   }
@@ -217,8 +279,10 @@ int launch_bucket(const void* X, const void* Kp, const void* Ke,
     return launch_bucket_nc<XT, NCV, VECV>(X, Kp, Ke, order1, ins1, offs1,   \
                                            order2, ins2, offs2, Y, g,        \
                                            (unsigned)blocks, s);
-  FPM_NC(1, false)
-  FPM_NC(32, false)
+  // bucket_tiling's counts (1, or half of min(C, 32) rounded up to even)
+  FPM_NC(1, false) FPM_NC(2, false) FPM_NC(4, false) FPM_NC(6, false)
+  FPM_NC(8, false) FPM_NC(10, false) FPM_NC(12, false) FPM_NC(14, false)
+  FPM_NC(16, false)
   FPM_NC(16 / (int)sizeof(XT), true)
 #undef FPM_NC
   return (int)cudaErrorInvalidValue;
@@ -249,36 +313,6 @@ static_assert(offsetof(LargeGeom, magic) == kGeomInts * sizeof(int),
 constexpr int kLargeTile = 640;       // most threads of a block
 constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
-__device__ __forceinline__ int div_by(int i, int d, unsigned magic) {
-  return d == 1 ? i : (int)__umulhi((unsigned)i, magic);
-}
-
-// Copy `bytes` (a multiple of 2) from global to shared memory with the
-// whole block: cp.async of 16 or 4 bytes where the source allows it, plain
-// loads and stores otherwise (both visible after the next barrier that
-// follows __pipeline_wait_prior).
-__device__ __forceinline__ void stage(unsigned char* dst,
-                                      const unsigned char* src, int bytes) {
-  const unsigned a = (unsigned)reinterpret_cast<unsigned long long>(src);
-  int done = 0;
-  if ((a & 15) == 0) {
-    const int n = bytes >> 4;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      __pipeline_memcpy_async(dst + 16 * i, src + 16 * i, 16);
-    done = n << 4;
-  }
-  if ((a & 3) == 0) {
-    const int n = (bytes - done) >> 2;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      __pipeline_memcpy_async(dst + done + 4 * i, src + done + 4 * i, 4);
-    done += n << 2;
-  }
-  const int n = (bytes - done) >> 1;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    reinterpret_cast<unsigned short*>(dst + done)[i] =
-        reinterpret_cast<const unsigned short*>(src + done)[i];
-}
-
 // X[b, in1, :, :] (N2 nodes of C values) into a staged row: as it is, or
 // word by word with one word of padding after each node (LargeGeom::nw).
 template <typename XT>
@@ -289,13 +323,8 @@ __device__ __forceinline__ void stage_x(unsigned char* dst, const XT* src,
           (int)((long long)g.N2 * g.C * sizeof(XT)));
     return;
   }
-  const int words = g.N2 * g.nw;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int j = div_by(i, g.nw, g.wmagic);
-    __pipeline_memcpy_async(
-        dst + 4 * (i + j),
-        reinterpret_cast<const unsigned char*>(src) + 4 * i, 4);
-  }
+  stage_padded(dst, reinterpret_cast<const unsigned char*>(src), g.N2, g.nw,
+               g.wmagic);
 }
 
 // With one channel a cell's graph-2 run is read once per column tile: its
@@ -469,10 +498,6 @@ int launch_large_nc(const void* X, const void* Kp, const void* Ke,
       (const int*)plan[1], (const int*)plan[2], (const int*)plan[3],
       (const int*)plan[4], (const int*)plan[5], (float*)Y, g);
   return (int)cudaGetLastError();
-}
-
-unsigned magic_of(int d) {
-  return d > 1 ? (unsigned)((0x100000000ULL + d - 1) / d) : 0u;
 }
 
 template <typename XT>

@@ -141,6 +141,78 @@ def test_edge_grad_plain_against_jax_without_masks(rng):
         close(t2n(dKp), want[1])
 
 
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("transpose", [True, False])
+def test_edge_grad_plain_on_the_forward_plan_against_jax_vjp(rng, transpose,
+                                                             masked):
+    """The plain K6 reads graph 1 through the forward's grouping
+    (`plan_bucket`, the kernel's own input): dKe and dKp against jax.vjp of
+    fpmatch_tpu/ops/assoc.py:46 at n = 16-40, E = 120, both orientations,
+    with masks (masked slots: dKe 0; the plan keeps them out of every run)
+    and without (padded slots alias node 0 and get an edge (0, 0)'s
+    value, as JAX AD gives it)."""
+    X, Kp, Ke, edges, m1, m2, em, G = _assoc_case(rng, B=2, n_max=40,
+                                                  e_max=120, C=3)
+
+    def f(x, kp, ke):
+        return jax.vmap(lambda *a: j_assoc.assoc_matvec(
+            *a, transpose=transpose))(x, kp, ke, *edges)
+    _, vjp = jax.vjp(f, jnp.asarray(X), jnp.asarray(Kp), jnp.asarray(Ke))
+    _, dKp_j, dKe_j = (np.asarray(a) for a in vjp(jnp.asarray(G)))
+    kw = dict(e1_mask=tt(m1), e2_mask=tt(m2)) if masked else {}
+    dKe, dKp = k6.assoc_edge_grad_plain(tt(G), tt(X),
+                                        *(tt(e) for e in edges),
+                                        transpose=transpose, **kw)
+    close(t2n(dKp), dKp_j)
+    if masked:
+        close(t2n(dKe)[em], dKe_j[em])
+        assert (t2n(dKe)[~em] == 0).all()
+    else:
+        close(t2n(dKe), dKe_j)
+
+
+_GEOMETRY = [
+    # (B, N1, N2, C, E1, E2, itemsize), path, threads, tiles, passes
+    ((8, 64, 64, 17, 384, 384, 4), "staged", 128, 3, 1),
+    ((8, 64, 64, 17, 384, 384, 2), "staged", 128, 3, 1),
+    ((8, 64, 64, 1, 384, 384, 4), "staged", 128, 3, 1),
+    ((8, 64, 64, 33, 384, 384, 4), "staged", 128, 3, 2),
+    ((2, 256, 256, 17, 1536, 1536, 4), "staged", 512, 3, 1),
+    ((2, 256, 256, 64, 1536, 1536, 4), "global", 512, 3, 2),
+    ((2, 256, 256, 100, 1536, 1536, 2), "global", 512, 3, 4),
+    ((1, 600, 600, 17, 3840, 3840, 4), "staged", 512, 8, 1),
+    ((1, 8, 8, 3, 5, 0, 4), "staged", 32, 1, 1),
+]
+
+
+@pytest.mark.parametrize("shape,path,threads,tiles,passes", _GEOMETRY)
+def test_grad_geometry_picks_the_path(shape, path, threads, tiles, passes):
+    """K6's shape rule (`grad_geometry`) at the shapes the card runs: two X
+    rows within STAGE_BYTES stream through shared memory, wider rows are
+    read from global memory; a block holds 2 N2 graph-2 slots (128 to 512,
+    no more than E2) and a thread at most 32 channels a pass."""
+    g = k6.grad_geometry(*shape)
+    assert (g.path, g.threads, g.tiles, g.passes) == (path, threads, tiles,
+                                                      passes)
+    B, N1, N2, C, E1, E2, itemsize = shape
+    assert g.threads % 32 == 0 and 32 <= g.threads <= k6.GRAD_TILE
+    assert g.tiles * g.threads >= E2 and (g.tiles - 1) * g.threads < max(
+        E2, 1)
+    assert g.cb <= min(C, k6.GRAD_SLICE) and g.cb * g.passes >= C
+    assert g.nc >= g.cb and (g.nc == 1 or g.nc % 4 == 0) and g.nc <= 32
+    if g.staged:
+        assert 2 * g.x_bytes == g.smem <= k6.STAGE_BYTES
+        assert g.x_bytes % 16 == 0 and g.x_bytes >= N2 * g.xs * itemsize
+        assert g.xs >= C and (g.nw == 0 or g.xs * itemsize == 4 * g.nw + 4)
+    else:
+        assert g.smem == 0 and 2 * N2 * C * itemsize > k6.STAGE_BYTES
+    # nodes of an even number of words are padded by one word
+    assert k6.grad_geometry(8, 64, 64, 16, 384, 384, 4)[12:14] == (17, 16)
+    assert k6.grad_geometry(8, 64, 64, 16, 384, 384, 2)[12:14] == (18, 8)
+    assert k6.grad_geometry(8, 64, 64, 16, 384, 384, 4,
+                            x_aligned=False)[12:14] == (16, 0)
+
+
 def test_edge_grad_checks_its_inputs(rng):
     X, Kp, Ke, edges, m1, m2, _, G = _assoc_case(rng, B=2, C=2)
     e = [tt(a) for a in edges]
@@ -181,6 +253,32 @@ def test_assoc_grad_kernel_and_backward_on_the_card(rng):
                            transpose=True, e1_mask=tt(m1), e2_mask=tt(m2))
     for t, w in zip((x, kp, ke), want):
         close(t2n(t.grad), w, 2e-5)
+
+
+@pytest.mark.gpu
+def test_assoc_grad_kernel_paths_on_the_card(rng):
+    """Needs a GPU and nvcc: K6 on each path of its launcher — staged in
+    one pass (C = 17), staged in two (C = 33), from global memory (C = 64
+    at N = 256) — f32 and bf16 X, against its plain version (bf16: within a
+    bf16 ulp of each dKe), bit-identical over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel has no interpret mode")
+    for n_max, e_max, C in ((64, 384, 17), (64, 384, 33), (256, 1536, 64)):
+        X, _, _, edges, m1, m2, _, G = _assoc_case(rng, B=2, n_max=n_max,
+                                                   e_max=e_max, C=C)
+        cu = lambda a: tt(a).cuda()
+        for x in (cu(X), cu(X).bfloat16()):
+            args = (cu(G), x, *(cu(e) for e in edges))
+            kw = dict(transpose=True, e1_mask=cu(m1), e2_mask=cu(m2))
+            got = k6.assoc_edge_grad(*args, **kw)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(got, k6.assoc_edge_grad(*args, **kw)))
+            want = k6.assoc_edge_grad_plain(*args, **kw)
+            close(t2n(got[1]), t2n(want[1]))
+            rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-5
+            w = t2n(want[0])
+            assert np.all(np.abs(t2n(got[0]) - w)
+                          <= rel * np.abs(w) + 1e-5 * np.abs(w).max())
 
 
 # ------------------------------------------------------ ops used in training

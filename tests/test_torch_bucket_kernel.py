@@ -18,7 +18,7 @@ from fpmatch_tpu.kernels.assoc_pallas import (assoc_matvec_pallas,
                                               assoc_matvec_pallas_large)
 from fpmatch_tpu.ops.assoc import assoc_matvec as j_assoc_matvec
 from fpmatch_tpu_torch.kernels import assoc_bucket as kb
-from fpmatch_tpu_torch.kernels._cells import channel_tiling
+from fpmatch_tpu_torch.kernels._cells import bucket_tiling, channel_tiling
 from fpmatch_tpu_torch.ops import assoc as t_assoc
 from test_torch_utils import t2n
 
@@ -384,6 +384,60 @@ def test_wrapper_checks_and_cpu_route(rng, monkeypatch):
     wide = [torch.zeros(1, 4, 4096, 17), torch.zeros(1, 4, 4096),
             torch.zeros(1, 0, 0)] + [torch.zeros(1, 0, dtype=torch.int32)] * 4
     assert torch.equal(kb.assoc_matvec_bucket(*wide), wide[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,want", [(1, (1, False)), (2, (2, False)),
+                                    (3, (2, False)), (5, (4, False)),
+                                    (17, (10, False)), (31, (16, False)),
+                                    (33, (16, False)), (64, (16, False))])
+def test_bucket_tiling_splits_a_cell_over_two_lanes(dtype, C, want):
+    """K2's channel split (`bucket_tiling`): 16-byte vectors where C and the
+    alignment allow (K4's `channel_tiling` rule); otherwise two lanes share
+    a cell's min(C, 32) channels, each an even count (bf16 X is read and
+    multiplied in pairs): 10 at the model's C = 17, 1 at C = 1. The
+    launcher takes every even count up to 32."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    X = torch.zeros(1, 2, 3, C, dtype=dtype)
+    if C % vec == 0:
+        assert bucket_tiling(X) == (vec, True) == channel_tiling(X)
+    else:
+        nc, v = bucket_tiling(X)
+        assert (nc, v) == want
+        assert nc == 1 or (nc % 2 == 0 and 2 <= nc <= 32)
+        lanes = -(-min(C, 32) // nc)
+        assert lanes <= 2 and nc * lanes >= min(C, 32)
+    # unaligned X (a view one channel in): scalar channels, still two lanes
+    off = torch.zeros(1, 2, 3, C + 1, dtype=dtype)[..., 1:]
+    if C > 1 and C % vec == 0:
+        assert bucket_tiling(off)[1] is False
+
+
+def test_one_step_builds_each_orientation_plan_once(rng, monkeypatch):
+    """A train step's association products on one set of edge lists: three
+    GNN layers forward (K^T), then per layer backward the dX launch (K,
+    the other orientation) and K6 (the forward's plan). `plan_bucket` keeps
+    both orientations, so the grouping runs once for each: K6 adds no
+    prologue of its own. Counted through the plain versions, which group
+    as the kernels do."""
+    from fpmatch_tpu_torch.kernels import assoc_grad as k6
+    X, Kp, Ke, idx, m1, m2 = _rand_case(rng, 2, 10, 10, 30, 30, 3, [20, 30],
+                                        [30, 11])
+    args = [tt(X), tt(Kp), tt(Ke), *(tt(a) for a in idx)]
+    masks = dict(e1_mask=tt(m1), e2_mask=tt(m2))
+    made = []
+    real = kb._csr
+    monkeypatch.setattr(kb, "_csr", lambda *a: made.append(1) or real(*a))
+    kb._memo.clear()
+    for _ in range(3):                                   # forward, K^T
+        kb.assoc_matvec_bucket_plain(*args, transpose=True, **masks)
+    assert len(made) == 2                                # one plan, 2 graphs
+    dY = tt(rng.normal(size=X.shape).astype(np.float32))
+    for _ in range(3):                                   # backward
+        kb.assoc_matvec_bucket_plain(dY, *args[1:], transpose=False,
+                                     **masks)
+        k6.assoc_edge_grad(dY, args[0], *args[3:], transpose=True, **masks)
+    assert len(made) == 4                                # + the K plan only
 
 
 def test_auto_dispatch_on_a_cuda_tensor(monkeypatch):

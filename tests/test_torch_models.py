@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 
@@ -242,3 +243,32 @@ def test_afau_encoder_matches(rng, S, univ):
     for b in range(B):
         want = jm.apply(v, jnp.asarray(cost[b]), int(n1[b]), int(n2[b]))
         np.testing.assert_allclose(got[b], float(want), **TOL)
+
+
+@pytest.mark.parametrize("plateau", [0.0, 0.5])
+def test_backbone_max_pools_route_ties_as_flax(rng, plateau):
+    """The backbone's two max-pools — the stem's 3x3 / stride 2 / pad 1
+    window and the global max over layer4 — route the gradient of a tied
+    maximum as Flax's `max_pool` (XLA's select_and_scatter: the first
+    maximum in the window) and `jnp.max` (split evenly among the ties) do,
+    on a post-ReLU input where most windows tie: at 0, or at a plateau."""
+    x = np.maximum(rng.normal(size=(2, 9, 11, 3)), 0).astype(np.float32)
+    x[x > 0.8] = plateau if plateau else x[x > 0.8]
+    x[:, 2:5, 3:7] = plateau                       # a whole tied block
+    g_pool = rng.normal(size=(2, 5, 6, 3)).astype(np.float32)
+    g_max = rng.normal(size=(2, 3)).astype(np.float32)
+
+    def jax_loss(v):
+        p = flax_nn.max_pool(v, (3, 3), strides=(2, 2),
+                             padding=((1, 1), (1, 1)))
+        return jnp.sum(p * g_pool) + jnp.sum(jnp.max(v, axis=(1, 2)) * g_max)
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(x)))
+    pool = t_bb.ResNet18Backbone(stem_channels=8,
+                                 stage_channels=(8, 8, 8, 8)).pool
+    xt = tt(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    p = pool(xt).permute(0, 2, 3, 1)
+    loss = (p * tt(g_pool)).sum() + (xt.amax(dim=(2, 3)) * tt(g_max)).sum()
+    loss.backward()
+    got = t2n(xt.grad.permute(0, 2, 3, 1))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
