@@ -122,6 +122,25 @@ Phases (each prints its own lines; any failure exits non-zero):
               cli.train --bf16 through stages 1 and 2, 4 steps each, beside
               phase 17's f32 stages; every K1 / K2 / K3 / K6 launch of
               phases 19-21 on bf16 X
+ 22. serve    --hyperedge --cls-k-features at full width on the bucket
+              route (n_max 64, t_max 384): 3 requests (K2 three times each),
+              one against the CPU (TF32 off, phase 5's limits), the UNIV
+              route refused ("hyperedge + univ kernel", as the reference),
+              cli.match.main --viz once (a 240x640 PNG)
+ 23. evaluate the same options over augmented test pairs (cli.evaluate
+              --augment): phase 7's split at B=8 / n_max 64 (K2) and phase
+              9's at B=2 / n_max 256 (K3); pairs/s
+ 24. train    one stage-1 step with both options at B=8, full width, card
+              against CPU (phase 16's limits); the step's peak memory; the
+              triangle term alone (CUDA events, peak memory) and its share
+              of a profiled step (torch.profiler)
+ 25. backbone VGG16, VGG16-bn and precomputed features ("none"): a forward
+              each at B=8 / n_max 64 (K2) against the CPU, then timed
+ 26. overfit  cli.overfit at its defaults (100 steps, TF32 off), loss and
+              accuracy every tenth step, the first step against the CPU's
+              In 22-26 one more call of each path runs under torch.profiler,
+              whose count of K1 / K2 / K3 / K6 launches must equal the
+              wrappers'.
 
 Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
 X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
@@ -165,7 +184,8 @@ from fpmatch_tpu_torch.core.build_graphs import build_edges
 from fpmatch_tpu_torch.data.benchmark import make_benchmark
 from fpmatch_tpu_torch.data.generator import (generate_synthetic_dataset,
                                               render_impression)
-from fpmatch_tpu_torch.data.pipeline import DataLoader, PairDataset
+from fpmatch_tpu_torch.data.pipeline import (DataLoader, PairDataset,
+                                             collate)
 from fpmatch_tpu_torch.kernels import _build
 from fpmatch_tpu_torch.kernels import assoc_bucket as k23
 from fpmatch_tpu_torch.kernels import assoc_grad as k6
@@ -2352,6 +2372,88 @@ def step_and_grads(model, batch, stage):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
+def compare_step(tag, stage, mg, mc, gg, gc, model_g, model_c, before_g,
+                 before_c):
+    """One train step's card results against the CPU's: loss terms, each
+    gradient (the limits of `phase_train_parity`), BatchNorm statistics,
+    frozen tensors. Returns (row, partition of each gradient, largest
+    gradient per partition); `check_step` fails on the row."""
+    part = {n: partition_of(n.split(".")[0]) for n in gc}
+    pmax = {}
+    for n, g in gc.items():
+        pmax[part[n]] = max(pmax.get(part[n], 0.0), float(g.abs().max()))
+    worst, cos = {}, {}
+    for n, g in gc.items():
+        if not torch.isfinite(gg[n]).all():
+            fail(f"{tag}: {n} has non-finite gradients")
+        if n.startswith(("afau.row_block.", "afau.final_row_")):
+            continue
+        scale = max(float(g.abs().max()), 1e-2 * pmax[part[n]])
+        worst[n] = float((gg[n] - g).abs().max()) / scale
+        # a direction only above the 1 % floor (below it, e.g. a bias
+        # that feeds a Sinkhorn, the gradient is zero up to rounding)
+        cos[n] = 1.0 if float(g.abs().max()) < 1e-2 * pmax[part[n]] \
+            else float(torch.nn.functional.cosine_similarity(
+                gg[n].double().reshape(-1), g.double().reshape(-1),
+                dim=0))
+    # the backbone's gradient passes 20 train-mode BatchNorm backwards
+    # (each subtracts batch means: cancellation) and cuDNN's f32
+    # convolution backward, which sums in another order than the CPU:
+    # it is held to 10 % per element and a cosine of 0.999 per tensor;
+    # every other partition to 1e-3
+    bad_grad = {n: (e, cos[n]) for n, e in worst.items()
+                if not (e <= (0.1 if part[n] == "backbone" else 1e-3)
+                        and cos[n] >= 0.999)}
+    loss_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+                for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
+    stats_err, frozen_changed = {}, []
+    sd_g, sd_c = model_g.state_dict(), model_c.state_dict()
+    for k, v in sd_c.items():
+        top = k.split(".")[0]
+        stat = k.endswith(("running_mean", "running_var"))
+        if stat:        # BatchNorm in train mode: the backbone, the cls
+            moves = (stage.train_main if top == "backbone"
+                     else stage.train_cls)
+        else:
+            moves = k in gc
+        if moves and stat:
+            stats_err[k] = float((sd_g[k].cpu() - v).abs().max()) / \
+                max(float(v.abs().max()), 1e-30)
+        elif not moves and not (torch.equal(sd_g[k].cpu(), before_g[k])
+                                and torch.equal(v, before_c[k])):
+            frozen_changed.append(k)
+    row = {"stage": stage.name, "loss_rel_err": loss_err,
+           "grad_rel_err_max": max(worst.values()),
+           "grad_rel_err_max_outside_backbone": max(
+               (e for n, e in worst.items() if part[n] != "backbone"),
+               default=0.0),
+           "grad_cosine_min": min(cos.values()),
+           "grad_rel_err_worst": sorted(worst.items(),
+                                        key=lambda kv: -kv[1])[:3],
+           "bn_stats_rel_err_max": max(stats_err.values(), default=0.0),
+           "n_grads": len(gc), "frozen_changed": frozen_changed,
+           "bad_grad": bad_grad}
+    return row, part, pmax
+
+
+def check_step(tag, row, gg, gc):
+    """Fail on a `compare_step` row: loss terms 1e-4 of their value (ks_loss
+    and the total that holds it 1e-2), the gradient limits, BatchNorm
+    statistics 1e-4, frozen tensors untouched, the same tensors trained."""
+    loss_err = row["loss_rel_err"]
+    if any(not e <= (1e-2 if k in ("ks_loss", "total_loss") else 1e-4)
+           for k, e in loss_err.items()):
+        fail(f"{tag}: loss terms differ: {loss_err}")
+    if row["bad_grad"]:
+        fail(f"{tag}: gradients differ: {row['bad_grad']}")
+    if not row["bn_stats_rel_err_max"] <= 1e-4:
+        fail(f"{tag}: BatchNorm statistics differ")
+    if row["frozen_changed"]:
+        fail(f"{tag}: frozen tensors changed: {row['frozen_changed'][:5]}")
+    if set(gg) != set(gc):
+        fail(f"{tag}: the card and the CPU trained other parameters")
+
+
 def phase_train_parity():
     """Stage 1 (grad clip; backbone, trunk and classifier train) and then
     stage 2 (k head only) one step each, on the card and on the port's CPU
@@ -2395,80 +2497,17 @@ def phase_train_parity():
             mc, gc = tap.run("replay",
                              lambda: step_and_grads(model_c, bc, stage))
         t_c = time.time() - t
-        part = {n: partition_of(n.split(".")[0]) for n in gc}
-        pmax = {}
-        for n, g in gc.items():
-            pmax[part[n]] = max(pmax.get(part[n], 0.0), float(g.abs().max()))
-        worst, cos = {}, {}
-        for n, g in gc.items():
-            if not torch.isfinite(gg[n]).all():
-                fail(f"16 train parity: {n} has non-finite gradients")
-            if n.startswith(("afau.row_block.", "afau.final_row_")):
-                continue
-            scale = max(float(g.abs().max()), 1e-2 * pmax[part[n]])
-            worst[n] = float((gg[n] - g).abs().max()) / scale
-            # a direction only above the 1 % floor (below it, e.g. a bias
-            # that feeds a Sinkhorn, the gradient is zero up to rounding)
-            cos[n] = 1.0 if float(g.abs().max()) < 1e-2 * pmax[part[n]] \
-                else float(torch.nn.functional.cosine_similarity(
-                    gg[n].double().reshape(-1), g.double().reshape(-1),
-                    dim=0))
-        # the backbone's gradient passes 20 train-mode BatchNorm backwards
-        # (each subtracts batch means: cancellation) and cuDNN's f32
-        # convolution backward, which sums in another order than the CPU:
-        # it is held to 10 % per element and a cosine of 0.999 per tensor;
-        # every other partition to 1e-3
-        bad_grad = {n: (e, cos[n]) for n, e in worst.items()
-                    if not (e <= (0.1 if part[n] == "backbone" else 1e-3)
-                            and cos[n] >= 0.999)}
-        loss_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
-                    for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
-        stats_err, frozen_changed = {}, []
-        sd_g, sd_c = model_g.state_dict(), model_c.state_dict()
-        for k, v in sd_c.items():
-            top = k.split(".")[0]
-            stat = k.endswith(("running_mean", "running_var"))
-            if stat:        # BatchNorm in train mode: the backbone, the cls
-                moves = (stage.train_main if top == "backbone"
-                         else stage.train_cls)
-            else:
-                moves = k in gc
-            if moves and stat:
-                stats_err[k] = float((sd_g[k].cpu() - v).abs().max()) / \
-                    max(float(v.abs().max()), 1e-30)
-            elif not moves and not (torch.equal(sd_g[k].cpu(), before_g[k])
-                                    and torch.equal(v, before_c[k])):
-                frozen_changed.append(k)
-        row = {"stage": stage.name, "card_s": t_g, "cpu_s": t_c,
-               "loss_rel_err": loss_err,
-               "grad_rel_err_max": max(worst.values()),
-               "grad_rel_err_max_outside_backbone": max(
-                   (e for n, e in worst.items() if part[n] != "backbone"),
-                   default=0.0),
-               "grad_cosine_min": min(cos.values()),
-               "grad_rel_err_worst": sorted(worst.items(),
-                                            key=lambda kv: -kv[1])[:3],
-               "bn_stats_rel_err_max": max(stats_err.values(), default=0.0),
-               "n_grads": len(gc), "frozen_changed": frozen_changed}
+        row, part, pmax = compare_step("16 train parity", stage, mg, mc, gg,
+                                       gc, model_g, model_c, before_g,
+                                       before_c)
+        row.update(card_s=t_g, cpu_s=t_c)
         say("[16 train parity] " + json.dumps(row))
         if first:
             row["backbone_diagnostic"] = backbone_diagnostic(
                 model_d, bg, stage, picks, taps_g, taps_c, gg, gc, part,
                 pmax)
             del model_d
-        if any(not e <= (1e-2 if k in ("ks_loss", "total_loss") else 1e-4)
-               for k, e in loss_err.items()):
-            fail(f"16 train parity: loss terms differ: {loss_err}")
-        if bad_grad:
-            fail(f"16 train parity: gradients differ: {bad_grad}")
-        if not row["bn_stats_rel_err_max"] <= 1e-4:
-            fail("16 train parity: BatchNorm statistics differ")
-        if frozen_changed:
-            fail(f"16 train parity: frozen tensors changed: "
-                 f"{frozen_changed[:5]}")
-        if set(gg) != set(gc):
-            fail("16 train parity: the card and the CPU trained other "
-                 "parameters")
+        check_step("16 train parity", row, gg, gc)
         out[stage.name] = row
     restore_counts(saved)
     return out
@@ -3091,6 +3130,453 @@ def phase_parent_timing(parent):
     return table
 
 
+# ------------------------------------- 22-26 the matcher's other options
+OPTION_FLAGS = ("--hyperedge", "--cls-k-features")
+# the CUDA kernels of the main paths, by the name torch.profiler gives them
+KERNEL_NAMES = {"assoc_univ_v3": "assoc_univ_v3_kernel",
+                "assoc_bucket": "assoc_bucket_kernel",
+                "assoc_large": "assoc_large_kernel",
+                "assoc_grad": "assoc_grad_kernel"}
+
+
+def profiler_launches(tag, fn):
+    """One more call of `fn` under torch.profiler: the launches of K1 / K2 /
+    K3 / K6 the profiler sees on the device, which must equal the wrappers'
+    counts of the same call (neither is kept in the main path's counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = read_counts()
+    reset_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = read_counts()
+    restore_counts(saved)
+    evs = prof.key_averages()
+    seen = {k: sum(e.count for e in evs if name in e.key)
+            for k, name in KERNEL_NAMES.items()}
+    wrappers = {k: counted[k] for k in KERNEL_NAMES}
+    say(f"[{tag}] torch.profiler's kernel launches of one call: {seen}")
+    if seen != wrappers:
+        fail(f"{tag}: the profiler saw {seen}, the wrappers counted "
+             f"{wrappers}")
+    return seen
+
+
+def expect_launches(tag, launches, **want):
+    full = {k: 0 for k in launches}
+    full.update(want)
+    if launches != full:
+        fail(f"{tag}: kernel launches {launches}, expected {full}")
+
+
+def write_request_files(d, req):
+    """Two PNGs and two .tsv keypoint files of a request, for cli.match."""
+    import cv2
+
+    d.mkdir(parents=True, exist_ok=True)
+    img1, P1, img2, P2 = req
+    files = []
+    for name, img, P in (("a", img1, P1), ("b", img2, P2)):
+        cv2.imwrite(str(d / f"{name}.png"), img)
+        with open(d / f"{name}.tsv", "w") as f:
+            f.write("x\ty\n" + "".join(f"{x:.3f}\t{y:.3f}\n" for x, y in P))
+        files += [str(d / f"{name}.png"), str(d / f"{name}.tsv")]
+    return files
+
+
+def phase_serve_options(tmp):
+    """22: --hyperedge --cls-k-features serving at full width on the bucket
+    route (n_max 64, e_max 384, t_max 384): three requests through
+    match_arrays (K2 three times each), one against the port's CPU run
+    (TF32 off, phase 5's limits), the UNIV route refused as the reference
+    refuses it, and cli.match.main --viz once."""
+    cfg = cli_config(64, 384, 600, *OPTION_FLAGS)
+    model = build_model(cfg, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 22)
+    requests = [(k, make_request(rng, k, 40, 60))
+                for k in ("genuine", "impostor", "ragged")]
+    reset_counts()
+    times = serve("22 serve options", model, requests)
+    launches = read_counts()
+    say(f"[22 serve options] kernel launches on the main path: {launches}")
+    expect_launches("22 serve options", launches,
+                    assoc_bucket=3 * len(requests))
+    prof = profiler_launches("22 serve options",
+                             lambda: match_arrays(model, *requests[0][1]))
+    saved = read_counts()
+    req = requests[2][1]
+    with tf32_off():
+        res_g, out_g = match_arrays(model, *req, return_outputs=True)
+        torch.cuda.synchronize()
+    t = time.time()
+    res_c, out_c = match_arrays(cpu_copy(model, cfg), *req,
+                                return_outputs=True)
+    cpu_s = time.time() - t
+    restore_counts(saved)
+    say(f"[22 parity] ragged request, CPU run {cpu_s:.1f} s; n_matched gpu "
+        f"{res_g['n_matched']} cpu {res_c['n_matched']}")
+    errs, agree = compare_outputs("22 parity", out_g, out_c)
+    try:
+        match_arrays(model, *req, univ_kernel=True)
+    except NotImplementedError as e:
+        if "hyperedge + univ kernel" not in str(e):
+            fail(f"22 serve options: the UNIV route raised {e!r}")
+        say(f"[22 serve options] UNIV route refused: {e!r}")
+    else:
+        fail("22 serve options: a --hyperedge request on the UNIV route "
+             "must raise")
+    png1, tsv1, png2, tsv2 = write_request_files(Path(tmp) / "viz", req)
+    viz = str(Path(tmp) / "viz" / "pair.png")
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_match.main([png1, png2, "--kpts1", tsv1, "--kpts2", tsv2,
+                             "--n-max", "64", "--e-max", "384", *OPTION_FLAGS,
+                             "--viz", viz, "--checkpoint-dir",
+                             str(Path(tmp) / "none")])
+    main_launches = read_counts()
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    import cv2
+    drawn = cv2.imread(viz)
+    say(f"[22 serve options] cli.match.main --viz: rc {rc}, launches "
+        f"{main_launches}, {viz} {None if drawn is None else drawn.shape}: "
+        f"{json.dumps({k: v for k, v in result.items() if k != 'matches'})}")
+    if rc != 0 or result.get("viz") != viz or drawn is None \
+            or drawn.shape != (240, 640, 3):
+        fail("22 serve options: cli.match.main --viz did not draw the pair")
+    expect_launches("22 serve options main", main_launches, assoc_bucket=3)
+    return {"wall_ms": [t * 1e3 for t in times], "launches": launches,
+            "profiler_launches": prof, "parity": errs,
+            "perm_rows_identical": agree, "cpu_s": cpu_s}
+
+
+def phase_evaluate_options(tmp, index_dir):
+    """23: evaluate_loader with --hyperedge --cls-k-features over augmented
+    test pairs (`PairDataset(augment=True)`, as `cli.evaluate --augment`
+    builds it): phase 7's split at B=8, n_max 64 (K2) and phase 9's at
+    B=2, n_max 256 (K3), thread workers, pinned + side-stream prefetch;
+    pairs/s, each batch checked as phase 7's."""
+    out = {}
+    for tag, (B, N, E), root, kernel, cut in (
+            ("23 evaluate options", (8, 64, 384), f"{tmp}/bucket",
+             "assoc_bucket", False),
+            ("23 evaluate options large", (2, 256, 1536), f"{tmp}/large",
+             "assoc_large", True)):
+        cfg = eval_config(B, N, E, *OPTION_FLAGS, "--augment")
+        model = build_model(cfg, device="cuda", seed=SEED)
+        bench = make_benchmark("Synthetic", "test", root=root,
+                               task="classify", output_dir=index_dir)
+        pd = PairDataset(bench, cfg, augment=True)
+        if cut:
+            pd.pairs = pd.pairs[:3] + pd.pairs[-2:]
+        loader = DataLoader(pd, cfg, drop_last=False, device=DEV,
+                            device_prefetch=True, num_workers=4,
+                            use_processes=False)
+        try:
+            launches, res, wall = run_evaluate(tag, model, loader, len(pd),
+                                               kernel)
+        finally:
+            loader.close()
+        sample = pd.get(0)
+        if sample.tris is None or not len(sample.tris[0]):
+            fail(f"{tag}: the pairs carry no triangles")
+        batch = collate([pd.get(i) for i in range(B)], cfg).to(DEV)
+        prof = profiler_launches(tag, lambda: model(batch))
+        out[kernel] = {"pairs": len(pd), "wall_s": wall,
+                       "pairs_per_s": len(pd) / wall,
+                       "batch_ms": [x * 1e3 for x in res["batch_seconds"]],
+                       "launches": launches, "profiler_launches": prof,
+                       "triangles_first_pair": [len(t) for t in
+                                                sample.tris]}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def tri_term_cost(B, N, T, channels, reps=10):
+    """The triangle term of one train step alone, at the step's shapes (the
+    three GNN layers' input widths): assoc_tri_matvec + assoc_tri_degree
+    forward and backward per layer, CUDA-event ms (median of `reps`) and
+    the peak memory it allocates above what was allocated before."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 24)
+    tri = torch.randint(0, N, (B, T, 3), generator=gen).to(DEV)
+    mask = torch.ones((B, T), dtype=torch.bool, device=DEV)
+    Kt = torch.rand((B, T, T), generator=gen).to(DEV).requires_grad_()
+    layers = []
+    for C in channels:
+        X = torch.randn((B, N, N, C), generator=gen).to(DEV).requires_grad_()
+        layers.append((X, torch.randn((B, N, N, C), generator=gen).to(DEV)))
+
+    def step():
+        for X, dY in layers:
+            deg = ops_assoc.assoc_tri_degree(mask, mask, tri, tri, N, N)
+            y = ops_assoc.assoc_tri_matvec(X, Kt, tri, tri) \
+                / torch.clamp(deg, min=1.0)[..., None]
+            y.backward(dY)
+
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return time_ms(step, reps=reps), peak
+
+
+def tri_share_profiled(model, batch, stage):
+    """One warm train step under torch.profiler with the triangle term's
+    functions (angle attributes, triangle affinity, assoc_tri_degree,
+    assoc_tri_matvec) each inside a `tri_term` range: the device time of the
+    kernels launched inside those ranges (forward) and of the autograd
+    nodes whose sequence numbers the ranges' ops hold (backward), beside the
+    step's device total."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fpmatch_tpu_torch.models import layers as t_layers
+
+    real = [(t_layers, "assoc_tri_matvec"), (t_layers, "assoc_tri_degree"),
+            (t_ngm, "hyperedge_angle_attrs")]
+    saved = [(m, n, getattr(m, n)) for m, n in real]
+
+    def ranged(fn):
+        def call(*a, **k):
+            with record_function("tri_term"):
+                return fn(*a, **k)
+        return call
+
+    for m, n, fn in saved:
+        setattr(m, n, ranged(fn))
+    aff = model.tri_aff.forward
+    model.tri_aff.forward = ranged(aff)
+    counts = read_counts()
+    try:
+        state = create_state(model, stage)
+        step = make_train_step(model, stage)
+        step(state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+        del model.tri_aff.forward
+        restore_counts(counts)
+    evs = prof.events()
+    # device kernels only (not the device-side copy of the ranges)
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and e.key != "tri_term") / 1e3
+    ranges = [e for e in evs if e.name == "tri_term"
+              and e.device_type.name == "CPU"]
+    fwd = sum(e.device_time_total for e in ranges) / 1e3
+    seqs, todo = set(), list(ranges)
+    while todo:
+        e = todo.pop()
+        if getattr(e, "sequence_nr", -1) >= 0:
+            seqs.add(e.sequence_nr)
+        todo.extend(e.cpu_children)
+    bwd = [e for e in evs if e.name.startswith(
+        "autograd::engine::evaluate_function") and e.sequence_nr in seqs]
+    bwd_ms = sum(e.device_time_total for e in bwd) / 1e3 if bwd else None
+    return {"step_device_ms": total, "tri_forward_ms": fwd,
+            "tri_backward_ms": bwd_ms, "tri_ranges": len(ranges),
+            "tri_backward_nodes": len(bwd),
+            "tri_share": None if bwd_ms is None or not total
+            else (fwd + bwd_ms) / total}
+
+
+def phase_train_options():
+    """24: one stage-1 train step with --hyperedge --cls-k-features at full
+    width, B=8 (n_max 64, e_max 384, t_max 384, sk_tau 0.05 as phase 16),
+    on the card and on the port's CPU path, TF32 off, the card's picks
+    replayed: phase 16's limits (`compare_step`). K2 forward, its dX and K6
+    each three times; the step's peak memory; the triangle term's time,
+    alone (CUDA events) and inside a profiled step (torch.profiler)."""
+    cfg = cli_train_config(8)
+    cfg = dataclasses.replace(cfg, ngm=dataclasses.replace(
+        cfg.ngm, sk_tau=0.05, hyperedge=True, cls_k_features=True))
+    model_g = build_model(cfg, device="cuda", seed=SEED)
+    model_c = cpu_copy(model_g, cfg)
+    host = synthetic_pair_batch(cfg, 8, genuine_ratio=0.5, n_range=(40, 60),
+                                seed=SEED + 24)
+    bg, bc = host.to(DEV), host.to("cpu")
+    stage = default_stages()[0]
+    before_g = {k: v.detach().cpu().clone()
+                for k, v in model_g.state_dict().items()}
+    before_c = {k: v.clone() for k, v in model_c.state_dict().items()}
+    saved = read_counts()
+    tap = GreedyTap()
+    reset_counts()
+    for k in ops_assoc.BACKWARD_LAUNCHES:
+        ops_assoc.BACKWARD_LAUNCHES[k] = 0
+    with tf32_off():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        mg, gg = tap.run("record", lambda: step_and_grads(model_g, bg, stage))
+        torch.cuda.synchronize()
+        t_g = time.time() - t
+        peak = torch.cuda.max_memory_allocated() - base
+    launches = read_counts()
+    bwd = dict(ops_assoc.BACKWARD_LAUNCHES)
+    t = time.time()
+    mc, gc = tap.run("replay", lambda: step_and_grads(model_c, bc, stage))
+    t_c = time.time() - t
+    row, _, _ = compare_step("24 train options", stage, mg, mc, gg, gc,
+                             model_g, model_c, before_g, before_c)
+    row.update(card_s=t_g, cpu_s=t_c, launches=launches,
+               backward_launches=bwd, step_peak_mb=peak / 2 ** 20,
+               n_tris=host.n_tris.tolist())
+    say("[24 train options] " + json.dumps(row))
+    check_step("24 train options", row, gg, gc)
+    for n in ("tri_aff.A.weight", "gnn_0.lin_t.weight", "match_cls.fc.weight"):
+        if n not in gg:
+            fail(f"24 train options: {n} got no gradient")
+    expect_launches("24 train options", launches, assoc_bucket=6,
+                    assoc_grad=3)
+    if bwd["assoc_bucket"] != 3:
+        fail(f"24 train options: {bwd} backward launches of K2, expected 3")
+    restore_counts(saved)
+    tap_p = GreedyTap()
+    prof = profiler_launches("24 train options", lambda: tap_p.run(
+        "record", lambda: step_and_grads(model_g, bg, stage)))
+    T, N = cfg.shapes.t_max, cfg.shapes.n_max
+    chans = [1] + [c + cfg.ngm.sk_emb for c in cfg.ngm.gnn_feat[:-1]]
+    alone_ms, alone_peak = tri_term_cost(8, N, T, chans)
+    share = tri_share_profiled(model_g, bg, stage)
+    w_mb = [8 * T * T * c * 4 / 2 ** 20 for c in chans]
+    row.update(profiler_launches=prof, tri_alone_ms=alone_ms,
+               tri_alone_peak_mb=alone_peak / 2 ** 20,
+               w_per_rotation_mb=w_mb, profiled=share)
+    say(f"[24 train options] triangle term alone (3 layers, C={chans}, "
+        f"fwd+bwd): {alone_ms:.3f} ms, peak {alone_peak / 2 ** 20:.1f} MB; "
+        f"W per rotation {[round(x, 1) for x in w_mb]} MB; step peak "
+        f"{peak / 2 ** 20:.1f} MB; profiled step: {json.dumps(share)}")
+    return row
+
+
+def phase_backbones():
+    """25: a forward of each other backbone kind at B=8, n_max 64 (K2), full
+    widths: VGG16 and VGG16-bn (node_feature_dim 1024) on 240x320 images,
+    and "none" on 128-wide precomputed keypoint features; each against the
+    port's CPU run, TF32 off (phase 5's limits), then timed with TF32 on."""
+    from fpmatch_tpu_torch.core.config import Config, ShapeConfig
+
+    out = {}
+    for kind in ("vgg16", "vgg16_bn", "none"):
+        cfg = Config(shapes=ShapeConfig(n_max=64, e_max=384))
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, kind=kind))
+        if kind != "none":
+            cfg = dataclasses.replace(cfg, ngm=dataclasses.replace(
+                cfg.ngm, node_feature_dim=1024))
+        host = synthetic_pair_batch(cfg, 8, genuine_ratio=0.5,
+                                    n_range=(40, 60), seed=SEED + 25)
+        feature_dim = None
+        if kind == "none":
+            feature_dim = 128
+            rng = np.random.default_rng(SEED + 25)
+            host = host._replace(features=rng.normal(
+                size=(8, 2, 64, feature_dim)).astype(np.float32))
+        model = build_model(cfg, device="cuda", seed=SEED,
+                            feature_dim=feature_dim)
+        bg = host.to(DEV)
+        tag = f"25 backbone {kind}"
+        reset_counts()
+        with tf32_off():
+            out_g = model(bg)
+            torch.cuda.synchronize()
+        launches = read_counts()
+        expect_launches(tag, launches, assoc_bucket=3)
+        check_batch(tag, bg, out_g)
+        saved = read_counts()
+        t = time.time()
+        out_c = cpu_copy(model, cfg)(host.to("cpu"))
+        cpu_s = time.time() - t
+        errs, agree = compare_outputs(tag, out_g, out_c)
+        ms = time_ms(lambda: model(bg), reps=5)
+        restore_counts(saved)
+        n_par = sum(p.numel() for p in model.backbone.parameters())
+        say(f"[{tag}] forward {ms:.1f} ms (TF32 default), backbone "
+            f"{n_par / 1e6:.2f} M parameters, CPU run {cpu_s:.1f} s")
+        out[kind] = {"forward_ms": ms, "launches": launches, "parity": errs,
+                     "perm_rows_identical": agree, "cpu_s": cpu_s}
+        del model, out_g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_overfit():
+    """26: python -m fpmatch_tpu_torch.cli.overfit at the reference CLI's
+    defaults (100 steps, lr 1e-4, n_max 32, one pair of 128x160, seed 0) on
+    the card, TF32 off so that its first step can be held against the CPU's
+    (the CLI's first step on the CPU: loss within 1e-3 relative; sk_tau
+    0.01 multiplies rounding noise by 100 at each Sinkhorn stage); every
+    loss finite; loss and accuracy every tenth step. Whether accuracy rose
+    is reported, not held."""
+    from fpmatch_tpu_torch.cli import overfit as cli_overfit
+
+    hist = []
+
+    def on_step(i, m):
+        hist.append({k: float(m[k]) for k in ("loss", "accuracy",
+                                              "ks_error", "total_loss")})
+        if not np.isfinite(hist[-1]["loss"]):
+            fail(f"26 overfit: non-finite loss at step {i}")
+
+    reset_counts()
+    for k in ops_assoc.BACKWARD_LAUNCHES:
+        ops_assoc.BACKWARD_LAUNCHES[k] = 0
+    buf = io.StringIO()
+    with tf32_off(), contextlib.redirect_stdout(buf):
+        t = time.time()
+        acc = cli_overfit.main(["--steps", "100"], on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    launches = read_counts()
+    bwd = dict(ops_assoc.BACKWARD_LAUNCHES)
+    for line in buf.getvalue().splitlines():
+        say(f"[26 overfit] {line}")
+    saved = read_counts()
+    cpu = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_overfit.main(["--steps", "1", "--device", "cpu"],
+                         on_step=lambda i, m: cpu.append(float(m["loss"])))
+    restore_counts(saved)
+    first = hist[0]["loss"]
+    rel = abs(first - cpu[0]) / max(abs(cpu[0]), 1e-6)
+    say(f"[26 overfit] {wall:.1f} s for 100 steps; first-step loss card "
+        f"{first:.6f} cpu {cpu[0]:.6f} (rel {rel:.2e}); accuracy step 0 "
+        f"{hist[0]['accuracy']:.4f} -> step 99 {acc:.4f}; launches "
+        f"{launches}, backward K2 {bwd}")
+    if not rel <= 1e-3:
+        fail(f"26 overfit: first-step loss differs from the CPU's by {rel}")
+    expect_launches("26 overfit", launches, assoc_bucket=600,
+                    assoc_grad=300)
+    return {"wall_s": wall, "every_tenth": hist[::10] + [hist[-1]],
+            "first_loss": {"card": first, "cpu": cpu[0], "rel_err": rel},
+            "accuracy_first_last": [hist[0]["accuracy"], acc],
+            "launches": launches, "backward_launches": bwd}
+
+
+def phase_options(tmp):
+    """Phases 22-26 in order; returns their JSON."""
+    t = time.time()
+    out = {"serve": phase_serve_options(tmp),
+           "evaluate": phase_evaluate_options(tmp, f"{tmp}/index"),
+           "train_step": phase_train_options(),
+           "backbones": phase_backbones(),
+           "overfit": phase_overfit()}
+    out["wall_s"] = time.time() - t
+    say(f"[22-26] the options' phases took {out['wall_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -3178,6 +3664,7 @@ def main():
                                      res7, res9)
         parity21 = phase_train_parity_bf16()
         train21 = phase_train_bf16(tmp, train_runs)
+        options = phase_options(tmp)
     parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
                                                  + 1]).resolve())
               if "--parent" in sys.argv[1:] else None)
@@ -3288,6 +3775,21 @@ def main():
         same = {r: t["same_bits_as_parent"] for r, t in parent.items()}
         if not all(same.values()):
             fail(f"outputs differ from the parent's bits: {same}")
+    # the launches of the matcher's options' paths (phases 22-26)
+    ks[1]["launches_options"] = {
+        "22_serve": options["serve"]["launches"]["assoc_bucket"],
+        "23_evaluate": options["evaluate"]["assoc_bucket"]["launches"][
+            "assoc_bucket"],
+        "24_train_step": options["train_step"]["launches"]["assoc_bucket"],
+        "25_backbones": sum(b["launches"]["assoc_bucket"]
+                            for b in options["backbones"].values()),
+        "26_overfit": options["overfit"]["launches"]["assoc_bucket"]}
+    ks[2]["launches_options"] = {
+        "23_evaluate_large": options["evaluate"]["assoc_large"]["launches"][
+            "assoc_large"]}
+    ks[5]["launches_options"] = {
+        "24_train_step": options["train_step"]["launches"]["assoc_grad"],
+        "26_overfit": options["overfit"]["launches"]["assoc_grad"]}
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
@@ -3322,6 +3824,8 @@ def main():
     say(json.dumps({"bf16": {
         "serve": serve19, "evaluate": eval20, "train_parity": parity21,
         "train": train21}}))
+    # the matcher's options: hyperedge, cls-k, the other backbones, overfit
+    say(json.dumps({"options": options}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

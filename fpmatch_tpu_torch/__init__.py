@@ -14,8 +14,10 @@ as their JAX counterparts:
   kernels/  hand-written CUDA C++ kernels (sources under kernels/csrc/, built
             with nvcc for sm_90a at first use) with a plain PyTorch version
             beside each; the association matvec's backward among them
-  models/   nn.Modules: ResNet-18 backbone, spline net, association-graph GNN
-            layers, AFA-U k-predictor, match classifier, the full NGMNet
+  models/   nn.Modules: ResNet-18 and VGG16 backbones (and the pathway of
+            precomputed keypoint features), spline net, association-graph
+            GNN layers (with the triangle hyperedge term), AFA-U
+            k-predictor, match classifier, the full NGMNet
   data/     numpy side: synthetic pairs and datasets, the dataset index and
             pair protocols, augmentation, pair construction, collation, the
             loader
@@ -27,8 +29,8 @@ as their JAX counterparts:
   poredet/  the pore detector: patch-CNN family, full-image inference, DPF
   cli/      entry points (single-pair serving: `cli.match`; batched
             verification evaluation: `cli.evaluate`; the training
-            curriculum: `cli.train`; pore detection over an image tree:
-            `cli.detect_pores`)
+            curriculum: `cli.train`; one pair overfitted: `cli.overfit`;
+            pore detection over an image tree: `cli.detect_pores`)
   scripts/  the block-size sweep of the blocked UNIV kernel (`tune_univ`)
   convert   Flax variable tree (as numpy) -> state_dict (matcher, detector)
 

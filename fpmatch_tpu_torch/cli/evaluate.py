@@ -13,6 +13,10 @@ every batch run through the CUDA kernels of `kernels/assoc_bucket`.
 `--discretize hungarian` adds, per batch, the host LAPJV solve of the first
 forward's `ds_mat` (`ops.hungarian`) and a second forward through
 `train.step.make_eval_step_masked`; the scores are the second forward's.
+`--hyperedge` (the batches carry triangles, each GNN layer adds the
+third-order term) and `--cls-k-features` must match the checkpoint;
+`--augment` augments the test pairs as the train split is augmented
+(seeded per pair).
 
 The work is split so that a script can enter below the files:
 `evaluate_loader` takes a model and a loader and returns labels, scores and
@@ -41,11 +45,6 @@ METRIC_COLUMNS = ["accuracy", "precision", "recall", "f1", "roc_auc",
                   "pr_auc", "far", "frr", "eer", "threshold"]
 
 
-def _waits(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, {item})")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Evaluate verification EER/ROC")
     ap.add_argument("--data-root", default="dataset/Synthetic")
@@ -65,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seeded random subsample of this many test pairs "
                          "(A/B studies; full protocol when omitted)")
     ap.add_argument("--augment", action="store_true",
-                    help="augment test pairs (not ported yet)")
+                    help="augment test pairs")
     ap.add_argument("--score", default="fused",
                     choices=["fused", "cls", "k"],
                     help="verification score: 'fused' = cls_prob * k_prob "
@@ -85,9 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="backbone node-feature taps, must match the "
                          "checkpoint (e.g. 'layer2,layer3')")
     ap.add_argument("--hyperedge", action="store_true",
-                    help="third-order association term (not ported yet)")
+                    help="enable the third-order (triangle hyperedge) "
+                         "association term (must match training)")
     ap.add_argument("--cls-k-features", action="store_true",
-                    help="k-statistic classifier features (not ported yet)")
+                    help="checkpoint was trained with k-statistic features "
+                         "in the match classifier")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute in the backbone and the graph-side "
                          "hot path (params stay f32: f32 checkpoints load "
@@ -206,11 +207,6 @@ def main(argv=None):
 
     from .. import resolve_device
 
-    if args.augment:
-        raise _waits("--augment", "Queue A: training")
-    if args.hyperedge or args.cls_k_features:
-        raise _waits("--hyperedge / --cls-k-features",
-                     "Queue A: hyperedge/VGG/GCN/QAP extras")
     device = resolve_device(args.device)    # fail before any work without a GPU
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -244,7 +240,7 @@ def _run(args, device, log):
 
     bench = make_benchmark(args.dataset, "test", root=args.data_root,
                            task="classify")
-    pd = PairDataset(bench, cfg, augment=False)
+    pd = PairDataset(bench, cfg, augment=args.augment)
     if args.limit and len(pd.pairs) > args.limit:
         keep = np.random.default_rng(0).choice(
             len(pd.pairs), size=args.limit, replace=False)

@@ -14,6 +14,12 @@ forward on `--device`). Pairs in a bucket of `--n-max >= 256` keypoints (or
 `--univ-kernel`) take the UNIV route: the three association-GNN aggregations
 run through the CUDA kernel of `kernels/assoc_univ_v3`.
 
+`--hyperedge` adds the third-order triangle term (the request carries each
+view's Delaunay triangles; the UNIV route raises with it, as the JAX CLI's
+model does) and `--cls-k-features` the classifier's k statistics; both must
+match the checkpoint. `--viz PATH` draws the pair with its matches
+(`utils.visualize.visualize_match`) and adds `"viz": PATH` to the JSON.
+
 `--discretize hungarian` reproduces the reference's full discretization: the
 first forward's `ds_mat` goes to the host, the native LAPJV solver
 (`ops.hungarian`) solves its valid block, and a second full forward
@@ -34,6 +40,8 @@ Example:
     python -m fpmatch_tpu_torch.cli.match a.png b.png \
         --kpts1 a.tsv --kpts2 b.tsv --n-max 600 --e-max 3840
     python -m fpmatch_tpu_torch.cli.match a.png b.png --discretize hungarian
+    python -m fpmatch_tpu_torch.cli.match a.png b.png --kpts1 a.tsv \
+        --kpts2 b.tsv --hyperedge --cls-k-features --viz pair.png
 """
 from __future__ import annotations
 
@@ -42,11 +50,6 @@ import json
 import sys
 
 import numpy as np
-
-
-def _waits(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, {item})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,13 +84,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--threshold", type=float, default=None,
                     help="decision threshold; when set, the JSON carries "
                          "a genuine true/false verdict")
-    ap.add_argument("--viz", default=None, help="not ported yet")
+    ap.add_argument("--viz", default=None,
+                    help="write a side-by-side match visualization (PNG)")
     ap.add_argument("--n-max", type=int, default=64)
     ap.add_argument("--e-max", type=int, default=384)
     ap.add_argument("--univ", type=int, default=600)
     ap.add_argument("--node-taps", default="layer3")
-    ap.add_argument("--cls-k-features", action="store_true")
-    ap.add_argument("--hyperedge", action="store_true")
+    ap.add_argument("--cls-k-features", action="store_true",
+                    help="the checkpoint's match classifier reads the "
+                         "k statistics")
+    ap.add_argument("--hyperedge", action="store_true",
+                    help="third-order (triangle hyperedge) association term "
+                         "(bucket route only; must match the checkpoint)")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute in the backbone and the graph-side "
                          "hot path (params stay f32: f32 checkpoints load "
@@ -181,10 +189,11 @@ def read_pair(args, detector=None):
 
 
 def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
-    """Host side of one request: Delaunay graphs, the padded single-pair
-    batch and, on the UNIV route, the kernel's plan. Returns (batch of numpy
-    arrays, plan or None)."""
-    from ..core.build_graphs import build_edges
+    """Host side of one request: Delaunay graphs (and triangles, with
+    `cfg.ngm.hyperedge`), the padded single-pair batch and, on the UNIV
+    route, the kernel's plan. Returns (batch of numpy arrays, plan or
+    None)."""
+    from ..core.build_graphs import build_edges, delaunay_triangles
     from ..data.pipeline import PairSample, collate
 
     n_max, e_max = cfg.shapes.n_max, cfg.shapes.e_max
@@ -194,10 +203,14 @@ def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
     _, s2, d2 = build_edges(P2, stg=cfg.data.src_graph_construct)
     s1, d1 = s1[:e_max], d1[:e_max]
     s2, d2 = s2[:e_max], d2[:e_max]
+    tris = None
+    if cfg.ngm.hyperedge:
+        tris = (delaunay_triangles(P1)[:cfg.shapes.t_max],
+                delaunay_triangles(P2)[:cfg.shapes.t_max])
     sample = PairSample(images=(img1, img2), points=(P1, P2),
                         edges=((s1, d1), (s2, d2)),
                         perm=np.zeros((len(P1), len(P2)), np.float32),
-                        label=0.0, cls=("q1", "q2"))
+                        label=0.0, cls=("q1", "q2"), tris=tris)
     batch = collate([sample], cfg)
     plan = None
     if univ_kernel or (univ_kernel is None and n_max >= 256):
@@ -211,7 +224,8 @@ def build_request(img1, P1, img2, P2, cfg, univ_kernel=None):
 
 def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
                  threshold=None, univ_kernel=None, checkpoint=None,
-                 return_outputs: bool = False, discretize: str = "greedy"):
+                 return_outputs: bool = False, discretize: str = "greedy",
+                 viz=None):
     """Serve one request below the file reading.
 
     :param model: an NGMNet (its device is where the request runs)
@@ -220,6 +234,8 @@ def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
     :param P1, P2: (n, 2) float32 keypoints (x, y) in image pixels
     :param discretize: "greedy", or "hungarian" for the host LAPJV and a
         second, masked forward
+    :param viz: path of a PNG to draw the pair and its matches into
+        (`result["viz"]`)
     :return: the result dict the CLI prints (and, with `return_outputs`,
         the model's output dict: the second pass's eval outputs with
         "hungarian")
@@ -255,6 +271,15 @@ def match_arrays(model, img1, P1, img2, P2, *, score: str = "fused",
     if threshold is not None:
         result["threshold"] = threshold
         result["genuine"] = bool(sc >= threshold)
+    if viz:
+        from ..utils.visualize import visualize_match
+        visualize_match(batch.images[0].cpu().numpy(),
+                        batch.points[0].cpu().numpy(),
+                        batch.n_nodes[0].cpu().numpy(),
+                        out["perm_mat"][0].cpu().numpy(),
+                        float(result.get("genuine", -1.0)), sc, viz,
+                        unknown_label=threshold is None)
+        result["viz"] = viz
     return (result, out) if return_outputs else result
 
 
@@ -298,8 +323,6 @@ def main(argv=None):
     from . import model_config_from_args
     from .. import resolve_device
 
-    if args.viz:
-        raise _waits("--viz", "Queue A: remaining CLIs / utils")
     resolve_device(args.device)          # fail before any work without a GPU
     cfg = model_config_from_args(args)
 
@@ -313,7 +336,7 @@ def main(argv=None):
     result = match_arrays(model, i1, P1, i2, P2, score=args.score,
                           threshold=args.threshold,
                           univ_kernel=args.univ_kernel, checkpoint=ckpt_name,
-                          discretize=args.discretize)
+                          discretize=args.discretize, viz=args.viz)
     print(json.dumps(result))
     return 0
 

@@ -12,10 +12,11 @@ and 6 (n_max 32, e_max 192, batches of 4), as the JAX CLI's does.
 `--bf16` is the JAX CLI's mixed precision (bf16 backbone convolutions and
 graph-side hot path, f32 parameters, optimizer state and losses; the
 backward of the association matvec on bf16 features runs through K2 / K3
-and K6 too). Not ported (each raises naming its ROADMAP.md item):
-`--hyperedge`, `--cls-k-features`, a mesh of more than one device. The JAX
-CLI's `warn_if_degraded_dispatch` probes the TPU runtime and has no
-counterpart here.
+and K6 too). `--hyperedge` trains the third-order triangle term (batches
+carry each view's Delaunay triangles) and `--cls-k-features` the
+classifier's k statistics. Not ported (raises naming its ROADMAP.md item):
+a mesh of more than one device. The JAX CLI's `warn_if_degraded_dispatch`
+probes the TPU runtime and has no counterpart here.
 
 Usage:
   python -m fpmatch_tpu_torch.cli.train --data-root dataset/Synthetic \\
@@ -106,9 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="dp",
                     help="mesh spec (only a one-device 'dp' is ported)")
     ap.add_argument("--cls-k-features", action="store_true",
-                    help="k-statistic classifier features (not ported yet)")
+                    help="feed the k statistics (k, matched fraction, "
+                         "mean matched score) to the match classifier")
     ap.add_argument("--hyperedge", action="store_true",
-                    help="third-order association term (not ported yet)")
+                    help="enable the third-order (triangle hyperedge) "
+                         "association term")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute in the backbone and the graph-side "
                          "hot path (params stay f32: f32 checkpoints load "
@@ -127,9 +130,6 @@ def main(argv=None, on_stage_end=None):
 
     from .. import resolve_device
 
-    if args.hyperedge or args.cls_k_features:
-        raise _waits("--hyperedge / --cls-k-features",
-                     "Queue A: hyperedge/VGG/GCN/QAP extras")
     if args.n_devices not in (0, 1) or args.mesh != "dp":
         raise _waits("training on a mesh of more than one device",
                      "Queue A: parallel/")
@@ -153,6 +153,12 @@ def main(argv=None, on_stage_end=None):
             cfg,
             backbone=dataclasses.replace(cfg.backbone, node_taps=taps),
             ngm=dataclasses.replace(cfg.ngm, node_feature_dim=feat))
+    if args.cls_k_features:
+        cfg = dataclasses.replace(
+            cfg, ngm=dataclasses.replace(cfg.ngm, cls_k_features=True))
+    if args.hyperedge:
+        cfg = dataclasses.replace(
+            cfg, ngm=dataclasses.replace(cfg.ngm, hyperedge=True))
     if args.bf16:
         cfg = dataclasses.replace(
             cfg,

@@ -68,13 +68,16 @@ def flax_tree_to_state_dict(params: Mapping, batch_stats: Mapping = None
 def from_flax_variables(variables: Mapping, cfg: Config
                         ) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} of numpy arrays -> state_dict for
-    `models.ngm.NGMNet(cfg)`. Raises if the converted keys or shapes do not
-    cover the model's own state_dict exactly."""
+    `models.ngm.NGMNet(cfg)` (for backbone kind "none" with the feature
+    width of the tree's `backbone.proj`). Raises if the converted keys or
+    shapes do not cover the model's own state_dict exactly."""
     from .models.ngm import NGMNet
 
     out = flax_tree_to_state_dict(variables["params"],
                                   variables.get("batch_stats"))
-    want = NGMNet(cfg).state_dict()
+    proj = out.get("backbone.proj.weight")
+    feature_dim = None if proj is None else proj.shape[1]
+    want = NGMNet(cfg, feature_dim=feature_dim).state_dict()
     for k, v in want.items():
         if k.endswith("num_batches_tracked"):
             out.setdefault(k, torch.zeros_like(v))

@@ -76,8 +76,11 @@ class NGMConfig:
     # predicate
     topk_extra_iter: int = 6
     match_cls_channels: Tuple[int, ...] = (16, 32)
-    cls_k_features: bool = False       # not ported yet
-    hyperedge: bool = False            # not ported yet
+    # k statistics ([k, matched fraction, mean matched score]) appended to
+    # the match classifier's pooled vector
+    cls_k_features: bool = False
+    # third-order (triangle hyperedge) association term
+    hyperedge: bool = False
     remat_sinkhorn: bool = True        # training-only knob
     # compute dtype of the graph-side hot path (spline conv, feature
     # alignment, edge features, affinity einsums, assoc-GNN gathers and

@@ -27,7 +27,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.build_graphs import build_edges, permute_edges
+from ..core.build_graphs import (build_edges, delaunay_triangles,
+                                 permute_edges)
 from ..core.config import Config
 from .augmentation import (augment_image_pair, augment_two_images,
                            standardize)
@@ -79,10 +80,6 @@ class PairDataset:
         self.cfg = cfg
         self.seed = seed
         self.augment = (bench.sets == "train") if augment is None else augment
-        if cfg.ngm.hyperedge:
-            raise NotImplementedError(
-                "hyperedge batches are not ported to fpmatch_tpu_torch yet "
-                "(ROADMAP.md, Queue A: hyperedge/VGG/GCN/QAP extras)")
         if bench.task == "classify":
             self.pairs = bench.classify_pairs()
         else:
@@ -178,9 +175,16 @@ class PairDataset:
         s1, d1 = s1[:e_max], d1[:e_max]
         s2, d2 = s2[:e_max], d2[:e_max]
 
+        tris = None
+        if cfg.ngm.hyperedge:
+            t_max = cfg.shapes.t_max
+            tris = (delaunay_triangles(P1)[:t_max],
+                    delaunay_triangles(P2)[:t_max])
+
         return PairSample(images=(i1, i2), points=(P1, P2),
                           edges=((s1, d1), (s2, d2)), perm=perm,
-                          label=label, cls=(e1["cls"], e2["cls"]))
+                          label=label, cls=(e1["cls"], e2["cls"]),
+                          tris=tris)
 
 
 # ------------------------------------------------------------ process workers
@@ -223,10 +227,6 @@ def collate(samples: Sequence[PairSample], cfg: Config, pinned: bool = False):
     torch; only the loader's prefetch path asks for it)."""
     from ..models.ngm import PairBatch
 
-    if cfg.ngm.hyperedge:
-        raise NotImplementedError(
-            "hyperedge batches are not ported to fpmatch_tpu_torch yet "
-            "(ROADMAP.md, Queue A: hyperedge/VGG/GCN/QAP extras)")
     B = len(samples)
     N, E = cfg.shapes.n_max, cfg.shapes.e_max
     H, W = cfg.data.rescale[1], cfg.data.rescale[0]
@@ -242,6 +242,10 @@ def collate(samples: Sequence[PairSample], cfg: Config, pinned: bool = False):
     gt_perm = zeros((B, N, N), np.float32)
     label = zeros((B,), np.float32)
     gt_k = zeros((B,), np.float32)
+    hyper = cfg.ngm.hyperedge
+    if hyper:
+        tri = zeros((B, 2, cfg.shapes.t_max, 3), np.int32)
+        n_tris = zeros((B, 2), np.int32)
 
     for b, s in enumerate(samples):
         for v in range(2):
@@ -258,13 +262,20 @@ def collate(samples: Sequence[PairSample], cfg: Config, pinned: bool = False):
             src[b, v, :len(sv)] = sv
             dst[b, v, :len(dv)] = dv
             n_edges[b, v] = len(sv)
+            if hyper and s.tris is not None:
+                tv = s.tris[v]
+                tri[b, v, :len(tv)] = tv
+                n_tris[b, v] = len(tv)
         p = s.perm[:N, :N]
         gt_perm[b, :p.shape[0], :p.shape[1]] = p
         label[b] = s.label
     gt_k[:] = gt_perm.sum((1, 2))
 
-    return PairBatch(images, points, n_nodes, src, dst, n_edges, gt_perm,
-                     label, gt_k)
+    batch = PairBatch(images, points, n_nodes, src, dst, n_edges, gt_perm,
+                      label, gt_k)
+    if hyper:
+        batch = batch._replace(tri=tri, n_tris=n_tris)
+    return batch
 
 
 class DataLoader:

@@ -1,6 +1,7 @@
 """Synthetic pair generation (host-side, numpy): random keypoint clouds,
 jittered genuine views with identity ground truth, impostor views with
-independent clouds and zero permutation.
+independent clouds and zero permutation; with `cfg.ngm.hyperedge` each
+view's Delaunay triangles (the first `t_max`) too.
 
 The random-number calls are made in the same order as the JAX package's
 `data/synthetic.py`, so the same seed gives the same batch in both packages.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.build_graphs import build_edges
+from ..core.build_graphs import build_edges, delaunay_triangles
 from ..core.config import Config
 
 
@@ -20,10 +21,6 @@ def synthetic_pair_batch(cfg: Config, batch_size: int, *, genuine_ratio=1.0,
     tensors)."""
     from ..models.ngm import PairBatch
 
-    if cfg.ngm.hyperedge:
-        raise NotImplementedError(
-            "hyperedge batches are not ported to fpmatch_tpu_torch yet "
-            "(ROADMAP.md, Queue A: hyperedge/VGG/GCN/QAP extras)")
     rng = np.random.default_rng(seed)
     N = cfg.shapes.n_max
     E = cfg.shapes.e_max
@@ -38,6 +35,11 @@ def synthetic_pair_batch(cfg: Config, batch_size: int, *, genuine_ratio=1.0,
     n_edges = np.zeros((B, 2), np.int32)
     gt_perm = np.zeros((B, N, N), np.float32)
     label = np.zeros((B,), np.float32)
+    hyper = cfg.ngm.hyperedge
+    if hyper:
+        T = cfg.shapes.t_max
+        tri = np.zeros((B, 2, T, 3), np.int32)
+        n_tris = np.zeros((B, 2), np.int32)
 
     for b in range(B):
         genuine = rng.uniform() < genuine_ratio
@@ -59,8 +61,15 @@ def synthetic_pair_batch(cfg: Config, batch_size: int, *, genuine_ratio=1.0,
             dst[b, v, :len(d)] = d
             n_nodes[b, v] = nv
             n_edges[b, v] = len(s)
+            if hyper:
+                tv = delaunay_triangles(P)[:T]
+                tri[b, v, :len(tv)] = tv
+                n_tris[b, v] = len(tv)
         if genuine:
             gt_perm[b, :n, :n] = np.eye(n)
 
-    return PairBatch(images, points, n_nodes, src, dst, n_edges, gt_perm,
-                     label, gt_perm.sum((1, 2)).astype(np.float32))
+    batch = PairBatch(images, points, n_nodes, src, dst, n_edges, gt_perm,
+                      label, gt_perm.sum((1, 2)).astype(np.float32))
+    if hyper:
+        batch = batch._replace(tri=tri, n_tris=n_tris)
+    return batch

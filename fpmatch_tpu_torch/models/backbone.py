@@ -28,12 +28,16 @@ from torch import nn
 
 def conv(layer: nn.Conv2d, x: torch.Tensor,
          dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """`flax.linen.Conv(dtype=dtype)` over the f32 kernel of `layer` (no
-    bias): input and kernel cast to `dtype`, the result in it."""
+    """`flax.linen.Conv(dtype=dtype)` over the f32 parameters of `layer`:
+    input, kernel and bias cast to `dtype`, the result in it (bf16: the
+    convolution rounded, then the bias added in bf16, as Flax adds it)."""
     if dtype == torch.float32:
         return layer(x)
-    return nn.functional.conv2d(x.to(dtype), layer.weight.to(dtype), None,
-                                layer.stride, layer.padding)
+    y = nn.functional.conv2d(x.to(dtype), layer.weight.to(dtype), None,
+                             layer.stride, layer.padding)
+    if layer.bias is None:
+        return y
+    return y + layer.bias.to(dtype).reshape(1, -1, 1, 1)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -19,7 +19,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.assoc import assoc_aggregate_mean
+from ..ops.assoc import (assoc_aggregate_mean, assoc_tri_degree,
+                         assoc_tri_matvec)
 from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.spline import spline_conv
 
@@ -116,23 +117,30 @@ class AssocGNNLayerBatched(nn.Module):
 
     def __init__(self, in_features: int, out_features: int = 16,
                  sk_channel: int = 1, sk_iter: int = 20,
-                 sk_tau: float = 0.05, dtype: torch.dtype = torch.float32):
+                 sk_tau: float = 0.05, dtype: torch.dtype = torch.float32,
+                 hyperedge: bool = False):
         super().__init__()
         self.sk_channel, self.sk_iter, self.sk_tau = sk_channel, sk_iter, \
             sk_tau
         self.dtype = dtype
         self.lin_l = nn.Linear(in_features, out_features)
         self.lin_r = nn.Linear(in_features, out_features, bias=False)
+        if hyperedge:
+            self.lin_t = nn.Linear(in_features, out_features, bias=False)
         self.self0 = nn.Linear(in_features, out_features)
         self.self1 = nn.Linear(out_features, out_features)
         if sk_channel:
             self.classifier = nn.Linear(out_features, sk_channel)
 
-    def forward(self, X, agg, kp_present, n1, n2):
-        """X, agg: (B, N1, N2, C_in); kp_present: (B, N1, N2); n1, n2: (B,)."""
+    def forward(self, X, agg, kp_present, n1, n2, tagg=None):
+        """X, agg: (B, N1, N2, C_in); kp_present: (B, N1, N2); n1, n2: (B,).
+        `tagg` (hyperedge layers): the mean-aggregated triangle term, added
+        through `lin_t` after lin_l + lin_r."""
         cdt = self.dtype
         Xc = X.to(cdt)
         x1 = dense(self.lin_l, agg, cdt) + dense(self.lin_r, Xc, cdt)
+        if tagg is not None:
+            x1 = x1 + dense(self.lin_t, tagg, cdt)
         h = torch.relu(dense(self.self1,
                              torch.relu(dense(self.self0, Xc, cdt)), cdt))
         x1 = x1 + h
@@ -157,12 +165,23 @@ class AssocGNNLayer(AssocGNNLayerBatched):
     result is f32). Same parameters as `AssocGNNLayerBatched`."""
 
     def forward(self, X, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst, kp_present,
-                e1_mask, e2_mask, n1, n2):
+                e1_mask, e2_mask, n1, n2, Kt=None, tri1=None, tri2=None,
+                t1_mask=None, t2_mask=None):
+        """With `Kt` (B, T1, T2) and the triangle lists / masks (hyperedge
+        layers), the triangle term `assoc_tri_matvec(X, Kt, ...) / max(tdeg,
+        1)` is computed from X as it comes in (f32 in the first layer, the
+        compute dtype after it), not from its compute-dtype copy."""
         Xc = X.to(self.dtype)
         agg = assoc_aggregate_mean(Xc, Kp, Ke, g1_src, g1_dst, g2_src, g2_dst,
                                    kp_present, e1_mask, e2_mask,
                                    transpose=True)
-        return super().forward(Xc, agg, kp_present, n1, n2)
+        tagg = None
+        if Kt is not None:
+            tdeg = assoc_tri_degree(t1_mask, t2_mask, tri1, tri2,
+                                    X.shape[1], X.shape[2])
+            tagg = assoc_tri_matvec(X, Kt, tri1, tri2) \
+                / torch.clamp(tdeg, min=1.0)[..., None]
+        return super().forward(Xc, agg, kp_present, n1, n2, tagg)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -201,7 +220,8 @@ class MatchClassifier(nn.Module):
     """Genuine/impostor classifier: a small CNN over the masked match map
     with masked pooling, so logits do not depend on the padding bucket."""
 
-    def __init__(self, channels: Tuple[int, ...] = (16, 32)):
+    def __init__(self, channels: Tuple[int, ...] = (16, 32),
+                 extra_features: int = 0):
         super().__init__()
         self.channels = tuple(channels)
         prev = 1
@@ -209,7 +229,7 @@ class MatchClassifier(nn.Module):
             self.add_module(f"conv{i}", nn.Conv2d(prev, ch, 3, padding=1))
             self.add_module(f"bn{i}", MaskedBatchNorm(ch))
             prev = ch
-        self.fc = nn.Linear(prev, 1)
+        self.fc = nn.Linear(prev + extra_features, 1)
 
     @staticmethod
     def _level_mask(h, w, shift, n1, n2, dtype):
@@ -222,9 +242,13 @@ class MatchClassifier(nn.Module):
         vc = torch.ceil(n2 / d).to(torch.int32)[:, None, None]
         return ((rows < vr) & (cols < vc)).to(dtype)[:, None]
 
-    def forward(self, match_mat, n1, n2, train: bool = False):
+    def forward(self, match_mat, n1, n2, train: bool = False,
+                extra_features=None):
         """match_mat: (B, S1, S2); n1, n2: (B,) valid counts -> (B,) logits.
-        `train`: BatchNorm in train mode (masked batch statistics)."""
+        `train`: BatchNorm in train mode (masked batch statistics).
+        `extra_features` (B, F), F the constructor's `extra_features`:
+        scalars appended to the pooled vector before `fc` (the model's
+        `cls_k_features` statistics)."""
         x = match_mat[:, None]
         for i in range(len(self.channels)):
             x = torch.relu(getattr(self, f"conv{i}")(x))
@@ -237,4 +261,6 @@ class MatchClassifier(nn.Module):
                              n2, x.dtype)
         pooled = (x * m).sum(dim=(2, 3)) / torch.clamp(m.sum(dim=(2, 3)),
                                                        min=1.0)
+        if extra_features is not None:
+            pooled = torch.cat([pooled, extra_features], dim=-1)
         return self.fc(pooled)[..., 0]

@@ -6,8 +6,9 @@
   K^T matvec + embedded Sinkhorn channel) -> Sinkhorn -> AFA-U k-prediction ->
   soft top-k -> greedy discretization -> match classifier.
 
-Everything is fixed-shape (N_MAX / E_MAX buckets) + per-sample counts; K is
-never materialized. Two routes of the association GNN are ported:
+Everything is fixed-shape (N_MAX / E_MAX / T_MAX buckets) + per-sample
+counts; K is never materialized. Two routes of the association GNN are
+ported:
 
   * default (bucket scale): `AssocGNNLayer` aggregates through
     `ops.assoc.assoc_matvec_auto` (the CUDA kernels K2 / K3 on a CUDA device,
@@ -17,6 +18,20 @@ never materialized. Two routes of the association GNN are ported:
     through `kernels.assoc_univ_v3.assoc_matvec_univ_v3` — the CUDA kernel on
     a CUDA device — and feed `AssocGNNLayerBatched`. Inference only, as in
     the JAX package, where no trainer reaches it.
+
+Every configuration of the JAX model is taken but the edge-sharded mesh
+(`batch.row_plan`, which raises naming its ROADMAP.md item):
+
+  * `backbone.kind`: "resnet18", "vgg16" / "vgg16_bn" (`models/vgg.py`), or
+    "none", where `batch.features` (B, 2, N, F) replace the images
+    (`NoBackbone`; F is given to the constructor as `feature_dim`);
+  * `ngm.hyperedge`: triangle affinities `Kt` from the corner-angle cosines
+    of `batch.tri` (`ops.spline.hyperedge_angle_attrs`, in f32), and each
+    bucket-route GNN layer adds their mean-aggregated third-order term
+    (`ops.assoc.assoc_tri_matvec`); with a UNIV plan it raises, as the JAX
+    model does;
+  * `ngm.cls_k_features`: the match classifier also reads [k, matched
+    fraction, mean matched score], detached.
 
 `forward(batch, train=...)` has the JAX model's meaning: `train` puts the
 soft top-k on the ground-truth k and, unless `bn_main` / `bn_cls` say
@@ -33,9 +48,6 @@ convolutions, the edge features, the affinities' operands and the assoc-GNN
 affinities and f32 sums; the final classifier and everything after it (the
 Sinkhorns, AFA-U, soft top-k, greedy, the match classifier, the losses) stay
 f32. Parameters are f32 in both precisions, so one state_dict serves both.
-
-Options of the JAX model that are not ported yet raise NotImplementedError
-naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -53,9 +65,10 @@ from ..ops.feature_align import feature_align, normalize_over_channels
 from ..ops.masking import length_mask
 from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.soft_topk import greedy_perm_batch, soft_topk_batch
-from ..ops.spline import edge_pseudo_coords
+from ..ops.spline import edge_pseudo_coords, hyperedge_angle_attrs
 from .afau import AFAUEncoder
 from .backbone import ResNet18Backbone
+from .vgg import NoBackbone, VGG16Backbone
 from .layers import (AssocGNNLayer, AssocGNNLayerBatched,
                      InnerProductAffinity, MatchClassifier, SplineNet, remat)
 
@@ -74,9 +87,12 @@ class PairBatch(NamedTuple):
     gt_perm: object     # (B, N, N) float32
     label: object       # (B,) float32 genuine=1/impostor=0
     gt_k: object        # (B,) float32
-    tri: Optional[object] = None        # hyperedges: not ported yet
-    n_tris: Optional[object] = None
-    features: Optional[object] = None   # non-image pathway: not ported yet
+    # triangle hyperedges (cfg.ngm.hyperedge; None otherwise)
+    tri: Optional[object] = None        # (B, 2, T, 3) int32
+    n_tris: Optional[object] = None     # (B, 2) int32
+    # precomputed per-keypoint features of the non-image pathway
+    # (cfg.backbone.kind == "none"; the images are then ignored)
+    features: Optional[object] = None   # (B, 2, N, F) float32
     row_plan: Optional[object] = None   # edge-sharded path: not ported yet
 
     @property
@@ -109,20 +125,19 @@ class NGMNet(nn.Module):
     :param univ_bf16: run the kernel's gather/multiply from bf16 association
         features (Ke, accumulation and result stay f32); implied by
         `ngm.compute_dtype == "bfloat16"`, as in the JAX model.
+    :param feature_dim: width F of `batch.features`, needed (only) by
+        `backbone.kind == "none"`, whose projection it sizes.
     """
 
-    def __init__(self, cfg: Config, univ_plan=None, univ_bf16: bool = False):
+    def __init__(self, cfg: Config, univ_plan=None, univ_bf16: bool = False,
+                 feature_dim: Optional[int] = None):
         super().__init__()
         ngm, bb = cfg.ngm, cfg.backbone
-        if bb.kind != "resnet18":
-            raise _waits(f"backbone kind {bb.kind!r}",
-                         "Queue A: hyperedge/VGG/GCN/QAP extras")
-        if ngm.hyperedge:
-            raise _waits("ngm.hyperedge",
-                         "Queue A: hyperedge/VGG/GCN/QAP extras")
-        if ngm.cls_k_features:
-            raise _waits("ngm.cls_k_features",
-                         "Queue A: hyperedge/VGG/GCN/QAP extras")
+        if bb.kind not in ("resnet18", "vgg16", "vgg16_bn", "none"):
+            raise ValueError(f"unknown backbone kind: {bb.kind!r}")
+        if bb.kind == "none" and feature_dim is None:
+            raise ValueError("backbone kind 'none' needs feature_dim, the "
+                             "width of batch.features")
         self.cfg = cfg
         dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
         if {ngm.compute_dtype, bb.dtype} - set(dtypes):
@@ -134,15 +149,27 @@ class NGMNet(nn.Module):
         self.univ_plan = univ_plan
         self.univ_bf16 = univ_bf16
 
-        self.backbone = ResNet18Backbone(
-            node_taps=bb.node_taps, stem_channels=bb.stem_channels,
-            stage_channels=bb.stage_channels,
-            blocks_per_stage=bb.blocks_per_stage, dtype=self.backbone_dtype)
         F = ngm.node_feature_dim
-        gdim = 2 * bb.stage_channels[3]
+        if bb.kind == "none":
+            self.backbone = NoBackbone(feature_dim, out_dim=F,
+                                       global_dim=ngm.global_state_dim // 2)
+            gdim = 2 * (ngm.global_state_dim // 2)
+        elif bb.kind == "resnet18":
+            self.backbone = ResNet18Backbone(
+                node_taps=bb.node_taps, stem_channels=bb.stem_channels,
+                stage_channels=bb.stage_channels,
+                blocks_per_stage=bb.blocks_per_stage,
+                dtype=self.backbone_dtype)
+            gdim = 2 * bb.stage_channels[3]
+        else:
+            self.backbone = VGG16Backbone(batch_norm=bb.kind == "vgg16_bn",
+                                          dtype=self.backbone_dtype)
+            gdim = 2 * VGG16Backbone.OUT_CHANNELS
         self.spline = SplineNet(features=F, num_layers=ngm.spline_layers)
         self.vertex_aff = InnerProductAffinity(F, gdim)
         self.edge_aff = InnerProductAffinity(F, gdim)
+        if ngm.hyperedge:
+            self.tri_aff = InnerProductAffinity(3, gdim)
         c_in = 1
         for i in range(ngm.gnn_layers):
             # AssocGNNLayer also serves the univ route through its base
@@ -150,13 +177,15 @@ class NGMNet(nn.Module):
             self.add_module(f"gnn_{i}", AssocGNNLayer(
                 c_in, out_features=ngm.gnn_feat[i], sk_channel=ngm.sk_emb,
                 sk_iter=ngm.sk_layer_iter, sk_tau=ngm.sk_tau,
-                dtype=self.compute_dtype))
+                dtype=self.compute_dtype, hyperedge=ngm.hyperedge))
             c_in = ngm.gnn_feat[i] + ngm.sk_emb
         self.classifier = nn.Linear(c_in, 1)
         if ngm.regression:
             self.afau = AFAUEncoder(univ_size=cfg.shapes.univ_size,
                                     reg_hidden=ngm.afa_reg_hidden)
-        self.match_cls = MatchClassifier(channels=ngm.match_cls_channels)
+        self.match_cls = MatchClassifier(
+            channels=ngm.match_cls_channels,
+            extra_features=3 if ngm.cls_k_features else 0)
         self.register_buffer("norm_means", torch.tensor(
             cfg.data.norm_means, dtype=torch.float32), persistent=False)
         self.register_buffer("norm_std", torch.tensor(
@@ -197,9 +226,6 @@ class NGMNet(nn.Module):
         if batch.row_plan is not None:
             raise _waits("the edge-sharded path (batch.row_plan)",
                          "Queue A: parallel/")
-        if batch.features is not None or batch.tri is not None:
-            raise _waits("batch.features / batch.tri",
-                         "Queue A: hyperedge/VGG/GCN/QAP extras")
         B, two, H, W, C_in = batch.images.shape
         N = batch.points.shape[2]
         E = batch.src.shape[2]
@@ -210,28 +236,36 @@ class NGMNet(nn.Module):
         edge_mask = length_mask(batch.n_edges.reshape(B * 2), E)
         pts = batch.points.reshape(B * 2, N, 2)
 
-        # ---- backbone over all images at once ----------------------------
-        imgs = batch.images.reshape(B * 2, H, W, C_in)
-        if imgs.dtype == torch.uint8:
-            # raw uint8, possibly single-channel luma: normalize here; a
-            # (..., 1) input broadcasts against the per-channel stats to RGB
-            imgs = (imgs.float() / 255.0 - self.norm_means) / self.norm_std
-        elif C_in == 1:
-            imgs = imgs.expand(-1, -1, -1, 3)
-        node_maps, edges_map, global_feat = self.backbone(
-            imgs.float().to(self.backbone_dtype), bn_main)
-        # channel-normalize in f32, then drop to the compute dtype for the
-        # alignment and everything graph-side
-        node_maps = [normalize_over_channels(m.float()).to(cdt)
-                     for m in node_maps]
-        edges_map = normalize_over_channels(edges_map.float()).to(cdt)
-        global_feat = global_feat.float()
+        if self.cfg.backbone.kind == "none":
+            # ---- non-image pathway: precomputed keypoint features --------
+            feats = batch.features.reshape(B * 2, N, -1)
+            node_feat, global_feat = self.backbone(
+                feats, node_mask.to(feats.dtype))
+        else:
+            # ---- backbone over all images at once ------------------------
+            imgs = batch.images.reshape(B * 2, H, W, C_in)
+            if imgs.dtype == torch.uint8:
+                # raw uint8, possibly single-channel luma: normalize here; a
+                # (..., 1) input broadcasts against the per-channel stats
+                imgs = (imgs.float() / 255.0 - self.norm_means) \
+                    / self.norm_std
+            elif C_in == 1:
+                imgs = imgs.expand(-1, -1, -1, 3)
+            node_maps, edges_map, global_feat = self.backbone(
+                imgs.float().to(self.backbone_dtype), bn_main)
+            # channel-normalize in f32, then drop to the compute dtype for
+            # the alignment and everything graph-side
+            node_maps = [normalize_over_channels(m.float()).to(cdt)
+                         for m in node_maps]
+            edges_map = normalize_over_channels(edges_map.float()).to(cdt)
+            global_feat = global_feat.float()
 
-        # ---- bilinear alignment at keypoints -----------------------------
-        rescale = self.cfg.data.rescale
-        aligned = [feature_align(m, pts, rescale) for m in node_maps]
-        aligned.append(feature_align(edges_map, pts, rescale))
-        node_feat = torch.cat(aligned, dim=-1) * node_mask[..., None]
+            # ---- bilinear alignment at keypoints -------------------------
+            rescale = self.cfg.data.rescale
+            aligned = [feature_align(m, pts, rescale) for m in node_maps]
+            aligned.append(feature_align(edges_map, pts, rescale))
+            node_feat = torch.cat(aligned, dim=-1)
+        node_feat = node_feat.to(cdt) * node_mask[..., None]
 
         # ---- spline-conv message passing per graph -----------------------
         src = batch.src.reshape(B * 2, E)
@@ -263,6 +297,23 @@ class NGMNet(nn.Module):
         Ke = 0.5 * self.edge_aff(edge_feat[:, 0], edge_feat[:, 1], global_w,
                                  mask=emask)
 
+        # ---- third-order (triangle) affinities ---------------------------
+        tri_extra = ()
+        if cfg.hyperedge:
+            T = batch.tri.shape[2]
+            tri_mask = length_mask(batch.n_tris.reshape(B * 2), T)
+            # angle cosines in f32 whatever the compute dtype
+            tri_attr = hyperedge_angle_attrs(
+                x.reshape(B * 2, N, -1).float(),
+                batch.tri.reshape(B * 2, T, 3),
+                tri_mask.float()).reshape(B, 2, T, 3)
+            tri_mask = tri_mask.reshape(B, 2, T)
+            tmask = tri_mask[:, 0, :, None] & tri_mask[:, 1, None, :]
+            Kt = 0.5 * self.tri_aff(tri_attr[:, 0], tri_attr[:, 1], global_w,
+                                    mask=tmask.to(x.dtype))
+            tri_extra = (Kt, batch.tri[:, 0], batch.tri[:, 1],
+                         tri_mask[:, 0], tri_mask[:, 1])
+
         # ---- association-graph GNN ---------------------------------------
         emb = Kp[..., None] if cfg.first_order else torch.ones(
             (B, N, N, 1), dtype=Kp.dtype, device=dev)
@@ -271,6 +322,8 @@ class NGMNet(nn.Module):
             # ---- UNIV-scale single-pair serving route ---------------------
             if B != 1:
                 raise ValueError("univ_plan is a single-pair path (B == 1)")
+            if cfg.hyperedge:
+                raise NotImplementedError("hyperedge + univ kernel")
             if isinstance(plan, UnivPlanV3) or (
                     isinstance(plan, UnivPlanDev)
                     and plan.in1_slot.device != dev):
@@ -292,7 +345,7 @@ class NGMNet(nn.Module):
                 emb = getattr(self, f"gnn_{i}")(
                     emb, Kp, Ke, batch.src[:, 0], batch.dst[:, 0],
                     batch.src[:, 1], batch.dst[:, 1], kp_present,
-                    edge_mask[:, 0], edge_mask[:, 1], n1, n2)
+                    edge_mask[:, 0], edge_mask[:, 1], n1, n2, *tri_extra)
 
         # ---- scores + Sinkhorn -------------------------------------------
         # f32 (Flax promotes a bf16 input against its f32 parameters)
@@ -322,7 +375,18 @@ class NGMNet(nn.Module):
                                    n2).detach()
 
         # ---- match classification ----------------------------------------
-        cls_logits = self.match_cls(s * x_perm, n1, n2, train=bn_cls)
+        matched_sim = s * x_perm
+        extra = None
+        if cfg.cls_k_features:
+            # k statistics beside the map; detached: the classifier's stage
+            # trains alone
+            n_matched = x_perm.sum(dim=(1, 2))
+            sum_sim = matched_sim.sum(dim=(1, 2))
+            extra = torch.stack(
+                [ks, n_matched / torch.clamp(min_pts, min=1.0),
+                 sum_sim / torch.clamp(n_matched, min=1.0)], dim=-1).detach()
+        cls_logits = self.match_cls(matched_sim, n1, n2, train=bn_cls,
+                                    extra_features=extra)
         cls_prob = torch.sigmoid(cls_logits)
 
         # ---- auxiliary losses --------------------------------------------
@@ -389,14 +453,20 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def build_model(cfg: Config, device="cuda", seed: int = 0, state_dict=None,
-                univ_plan=None, univ_bf16: bool = False) -> NGMNet:
+                univ_plan=None, univ_bf16: bool = False,
+                feature_dim: Optional[int] = None) -> NGMNet:
     """An NGMNet on `device` (default `cuda`; raises when that is asked for
     and there is no GPU), with weights from `state_dict` or, without one,
-    initialised from `seed`."""
+    initialised from `seed`. `feature_dim` (backbone kind "none") is read
+    from `state_dict` when it is not given."""
     from .. import resolve_device
 
     dev = resolve_device(device)
-    model = NGMNet(cfg, univ_plan=univ_plan, univ_bf16=univ_bf16)
+    if feature_dim is None and state_dict is not None \
+            and "backbone.proj.weight" in state_dict:
+        feature_dim = state_dict["backbone.proj.weight"].shape[1]
+    model = NGMNet(cfg, univ_plan=univ_plan, univ_bf16=univ_bf16,
+                   feature_dim=feature_dim)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

@@ -234,3 +234,71 @@ def assoc_aggregate_mean(X, Kp, Ke, src1, dst1, src2, dst2,
     deg = assoc_degree(Kp_present, e1_mask, e2_mask, src1, dst1, src2, dst2,
                        n1, n2, transpose=transpose)
     return y / torch.clamp(deg, min=1.0)[..., None]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, T) integer indices -> (B, T, n) float32 one-hot rows."""
+    return torch.nn.functional.one_hot(idx.long(), n).float()
+
+
+def assoc_tri_matvec(X: torch.Tensor, Kt: torch.Tensor, tri1, tri2
+                     ) -> torch.Tensor:
+    """Third-order (triangle hyperedge) association propagation: for each
+    pair of triangles (t1, t2) and each corner rotation r, the corner match
+    (a1, a2) receives the mean of its partner-corners' features,
+
+        Y[a1, a2] += Kt[t1, t2] (X[b1, b2] + X[c1, c2]) / 2.
+
+    The rotation's W = (X[b1][:, b2] + X[c1][:, c2]) / 2 is gathered and
+    summed in X's dtype, then multiplied by Kt in f32; its two segment sums
+    (over t2 onto a2, then over t1 onto a1) are products with one-hot
+    matrices in f32, whose order of summation is fixed (no atomics on a CUDA
+    tensor). Padded triangle slots alias node 0 and MUST carry Kt == 0; they
+    are multiplied like every other slot.
+
+    :param X: (B, N1, N2, C) association node features (f32 or bf16)
+    :param Kt: (B, T1, T2) triangle-pair affinities (f32)
+    :param tri1: (B, T1, 3) graph-1 triangle corners; tri2: (B, T2, 3)
+    :return: (B, N1, N2, C) float32
+    """
+    B, n1, n2, C = X.shape
+    t1, t2 = tri1.shape[1], tri2.shape[1]
+    Y = None
+    for r in range(3):
+        a1, b1, c1 = (tri1[..., (r + k) % 3] for k in range(3))
+        a2, b2, c2 = (tri2[..., (r + k) % 3] for k in range(3))
+
+        def pairs(i1, i2):
+            # X[b][i1[b]][:, i2[b]]: (B, T1, T2, C)
+            rows = X.reshape(B * n1, n2, C).index_select(
+                0, _batch_offsets(i1, n1)).reshape(B, t1, n2, C)
+            rows = rows.transpose(1, 2).reshape(B * n2, t1, C)
+            return rows.index_select(0, _batch_offsets(i2, n2)).reshape(
+                B, t2, t1, C).transpose(1, 2)
+
+        W = (0.5 * (pairs(b1, b2) + pairs(c1, c2))).float() * Kt[..., None]
+        T = torch.einsum("btsc,bsm->btmc", W, _one_hot(a2, n2))
+        S = torch.einsum("btn,btmc->bnmc", _one_hot(a1, n1), T)
+        Y = S if Y is None else Y + S
+    return Y
+
+
+def assoc_tri_degree(t1_mask, t2_mask, tri1, tri2, n1: int, n2: int
+                     ) -> torch.Tensor:
+    """Hyperedge count per association node, the normalizer of the mean
+    over `assoc_tri_matvec`: sum_r tdeg1_r(i1) tdeg2_r(i2), where tdeg_r
+    counts the valid triangles whose r-th corner is the node.
+
+    :param t1_mask, t2_mask: (B, T) validity of the triangle slots
+    :param tri1, tri2: (B, T, 3) triangle corners
+    :return: (B, N1, N2) float32
+    """
+    deg = None
+    for r in range(3):
+        d1 = torch.einsum("bt,btn->bn", t1_mask.float(),
+                          _one_hot(tri1[..., r], n1))
+        d2 = torch.einsum("bt,btn->bn", t2_mask.float(),
+                          _one_hot(tri2[..., r], n2))
+        term = d1[:, :, None] * d2[:, None, :]
+        deg = term if deg is None else deg + term
+    return deg

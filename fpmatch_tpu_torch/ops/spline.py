@@ -117,3 +117,32 @@ def edge_pseudo_coords(points: torch.Tensor, src, dst,
     diff = 0.5 * (torch.gather(points, 1, idx_s)
                   - torch.gather(points, 1, idx_d)) / rescale + 0.5
     return torch.clamp(diff, 0.0, 1.0)
+
+
+def hyperedge_angle_attrs(x: torch.Tensor, tri: torch.Tensor,
+                          tri_mask: torch.Tensor) -> torch.Tensor:
+    """Triangle-angle hyperedge attributes: for each triangle (i, j, k) the
+    cosines of its three corner angles in feature space.
+
+    :param x: (G, N, F) node features; tri: (G, T, 3) corner indices;
+        tri_mask: (G, T) validity (float)
+    :return: (G, T, 3) cosines, zero on padded slots
+    """
+    F = x.shape[-1]
+    corner = lambda k: torch.gather(
+        x, 1, tri[..., k].long()[..., None].expand(-1, -1, F))
+    a, b, c = corner(0), corner(1), corner(2)
+    v01 = a - b
+    v02 = a - c
+    v12 = b - c
+
+    def norm(v):
+        # safe norm: padded triangles alias node 0, so v == 0 exactly and
+        # d|v|/dv would be NaN there (0 * NaN poisons the masked slots'
+        # gradient); the max inside the sqrt keeps it finite
+        return torch.sqrt(torch.clamp((v * v).sum(-1), min=1e-12))
+
+    cos1 = (v01 * v02).sum(-1) / (norm(v01) * norm(v02))
+    cos2 = (-v01 * v12).sum(-1) / (norm(v01) * norm(v12))
+    cos3 = (v12 * v02).sum(-1) / (norm(v12) * norm(v02))
+    return torch.stack([cos1, cos2, cos3], dim=-1) * tri_mask[..., None]

@@ -191,6 +191,43 @@ def test_cli_match_seeded_init_without_checkpoint(pair_files, capsys):
                                  min(a["n_kpts"]))
 
 
+def test_cli_match_hyperedge_cls_k_and_viz_on_the_cpu(pair_files, tmp_path,
+                                                       monkeypatch, capsys):
+    """`--hyperedge --cls-k-features --viz` at tiny widths
+    (test_torch_utils.build_tiny): the model carries both options, the
+    request its Delaunay triangles, the JSON the JAX CLI's keys and the
+    drawing's path. A request on the UNIV route (`--univ-kernel`) raises
+    the JAX model's "hyperedge + univ kernel"."""
+    from test_torch_utils import build_tiny
+
+    d, files = pair_files
+    built = build_tiny(monkeypatch)
+    seen = []
+    real = t_match.build_request
+    monkeypatch.setattr(t_match, "build_request", lambda *a, **k: seen.append(
+        real(*a, **k)) or seen[-1])
+    viz = str(tmp_path / "hyper.png")
+    flags = ["--device", "cpu", "--checkpoint-dir", str(d / "none"),
+             "--hyperedge", "--cls-k-features"]
+    rc, out = _run(t_match.main, _argv(files, flags + ["--viz", viz]),
+                   capsys)
+    cfg, model, _ = built[0]
+    assert rc == 0 and cfg.ngm.hyperedge and cfg.ngm.cls_k_features
+    assert hasattr(model, "tri_aff")
+    assert model.match_cls.fc.in_features == \
+        cfg.ngm.match_cls_channels[-1] + 3
+    batch, plan = seen[0]
+    assert plan is None and batch.n_tris.min() > 0
+    assert batch.tri.shape == (1, 2, cfg.shapes.t_max, 3)
+    assert list(out) == ["score", "score_kind", "cls_prob", "k_prob",
+                         "k_pred", "n_kpts", "n_matched", "matches",
+                         "checkpoint", "viz"]
+    assert out["n_matched"] == len(out["matches"])
+    assert os.path.getsize(viz) > 0
+    with pytest.raises(NotImplementedError, match="hyperedge \\+ univ"):
+        t_match.main(_argv(files, flags + ["--univ-kernel"]))
+
+
 def test_cli_match_errors(pair_files, tmp_path, capsys):
     d, files = pair_files
     png1, tsv1, png2, tsv2 = files
@@ -206,10 +243,14 @@ def test_cli_match_errors(pair_files, tmp_path, capsys):
     rc, out = _run(t_match.main, [png1, png2, "--kpts1", empty, "--kpts2",
                                   tsv2, *cpu], capsys)
     assert rc == 2 and out["error"] == "no keypoints found"
-    # routes that wait for later work name their ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_match.main([png1, png2, "--kpts1", tsv1, "--kpts2", tsv2, "--viz",
-                      "x.png", *cpu])
+    # --viz draws the pair with its matches, as the JAX CLI: a PNG of the
+    # two 240x320 crops side by side, its path in the JSON
+    viz = str(tmp_path / "pair.png")
+    rc, out = _run(t_match.main, [png1, png2, "--kpts1", tsv1, "--kpts2",
+                                  tsv2, "--viz", viz, *cpu], capsys)
+    cv2 = pytest.importorskip("cv2")
+    assert rc == 0 and out["viz"] == viz and list(out)[-1] == "viz"
+    assert cv2.imread(viz).shape == (240, 640, 3)
     with pytest.raises(FileNotFoundError):
         t_match.main([str(tmp_path / "nope.png"), png2, "--kpts1", tsv1,
                       "--kpts2", tsv2, *cpu])

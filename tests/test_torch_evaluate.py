@@ -45,7 +45,7 @@ from fpmatch_tpu_torch.train import checkpoints as t_checkpoints
 from fpmatch_tpu_torch.train import losses as t_losses
 from fpmatch_tpu_torch.train import step as t_step
 from test_torch_ngm import _perm_equal_up_to_ties
-from test_torch_utils import (damp_afau_mixing, flax_init,
+from test_torch_utils import (build_tiny, damp_afau_mixing, flax_init,
                               randomize_batch_stats, t2n, tiny_jax_config,
                               to_torch_config)
 
@@ -635,17 +635,47 @@ def test_cli_evaluate_without_matplotlib_skips_the_drawings(tmp_path,
     assert (out / "metrics.csv").exists() and not list(out.glob("*.png"))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--hyperedge"], "hyperedge"),
-    (["--cls-k-features"], "hyperedge"),
-    (["--augment"], "training"),
-])
-def test_cli_evaluate_options_that_wait_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        t_evaluate.main(CLI_ARGS + ["--output-dir", str(tmp_path / "o"),
-                                    "--device", "cpu", *flags])
-    assert item in str(e.value)
-    assert not (tmp_path / "o").exists()          # raised before any work
+def test_cli_evaluate_hyperedge_cls_k_augment_on_the_cpu(tmp_path,
+                                                          monkeypatch):
+    """`--hyperedge --cls-k-features --augment` (tiny widths,
+    test_torch_utils.build_tiny): the model carries both options, the test
+    pairs are augmented as the JAX CLI's `PairDataset(bench, cfg,
+    augment=args.augment)` (the first pair differs from its plain form),
+    every batch carries its triangles into the model, and the scores are
+    finite, one row per pair."""
+    from fpmatch_tpu_torch.models import ngm as t_ngm
+
+    built = build_tiny(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(t_evaluate, "have_matplotlib", lambda: False)
+    loaders, tris = [], []
+    real_eval = t_evaluate.evaluate_loader
+    monkeypatch.setattr(t_evaluate, "evaluate_loader",
+                        lambda model, loader, **k: loaders.append(loader)
+                        or real_eval(model, loader, **k))
+    real_fwd = t_ngm.NGMNet.forward
+    monkeypatch.setattr(t_ngm.NGMNet, "forward",
+                        lambda self, b, *a, **k: tris.append(b.n_tris)
+                        or real_fwd(self, b, *a, **k))
+    out = tmp_path / "out"
+    report = t_evaluate.main(CLI_ARGS + [
+        "--output-dir", str(out), "--batch-size", "2", "--limit", "3",
+        "--device", "cpu", "--checkpoint-dir", str(tmp_path / "none"),
+        "--hyperedge", "--cls-k-features", "--augment"])
+    cfg, model, _ = built[0]
+    assert cfg.ngm.hyperedge and cfg.ngm.cls_k_features
+    assert hasattr(model, "tri_aff") and model.match_cls.fc.in_features == \
+        cfg.ngm.match_cls_channels[-1] + 3
+    pd = loaders[0].dataset
+    assert pd.augment
+    plain = t_pipeline.PairDataset(pd.bench, cfg, augment=False)
+    plain.pairs = pd.pairs
+    assert not np.array_equal(pd.get(0).images[0], plain.get(0).images[0])
+    assert len(tris) == 2 and all(int(t.min()) > 0 for t in tris)
+    rows = list(csv.reader(open(out / "scores.csv")))
+    assert len(rows) == 1 + 3
+    assert np.isfinite(np.array([r[3:] for r in rows[1:]], float)).all()
+    assert np.isfinite(report["eer"])
 
 
 def test_cli_evaluate_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):

@@ -318,18 +318,14 @@ def test_ngm_untouched_init_at_model_temperature():
 
 
 def test_ngm_options_that_wait_raise():
-    import dataclasses
-
+    """The edge-sharded path (`batch.row_plan`) waits for `parallel/` and
+    raises naming its ROADMAP item; every other option of the JAX model is
+    taken (test_torch_hyperedge, test_torch_configs). Train mode works."""
     tcfg = to_torch_config(tiny_jax_config())
-    for bad in (
-            tcfg.replace(ngm=dataclasses.replace(tcfg.ngm, hyperedge=True)),
-            tcfg.replace(ngm=dataclasses.replace(tcfg.ngm,
-                                                 cls_k_features=True)),
-            tcfg.replace(backbone=dataclasses.replace(tcfg.backbone,
-                                                      kind="vgg16"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NGMNet(bad)
     net = NGMNet(tcfg)
+    batch = t_synth(tcfg, 1, n_range=(6, 10), image_hw=(32, 48), seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        net(batch._replace(row_plan=object()).to("cpu"))
     assert not net.training
     net.train()                         # train mode works (training ported)
     assert net.training and net.backbone.training

@@ -73,10 +73,11 @@ from fpmatch_tpu_torch.train import scheduler as t_scheduler
 from fpmatch_tpu_torch.train import state as t_state
 from fpmatch_tpu_torch.train import step as t_step
 from fpmatch_tpu_torch.utils.logging import MetricsLogger
+import test_torch_hyperedge
 from test_torch_ngm import _mixed_batch, _torch_batch
-from test_torch_utils import (build_tiny, damp_afau_mixing, np_tree,
-                              randomize_batch_stats, t2n, tiny_jax_config,
-                              tiny_widths, to_torch_config)
+from test_torch_utils import (build_tiny, damp_afau_mixing, flax_init,
+                              np_tree, randomize_batch_stats, t2n,
+                              tiny_jax_config, tiny_widths, to_torch_config)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
 GRAD_TOL = 1e-3
@@ -108,9 +109,14 @@ def jax_steps(case):
     """{stage number: (new params, new batch_stats, mu, nu, metrics)} of one
     JAX train step from the shared init, mu / nu as state_dict-named numpy
     arrays of the trained parameters."""
-    jcfg, batch, v = case
+    return jax_train_steps(*case, (1, 2, 6))
+
+
+def jax_train_steps(jcfg, batch, v, nums):
+    """{stage number: (new params, new batch_stats, mu, nu, metrics, greedy
+    picks)} of one JAX train step per stage in `nums` from `v`."""
     out, perms = {}, {}
-    for num in (1, 2, 6):
+    for num in nums:
         stage = j_stages()[num - 1]
         state = j_state.create_state(v, stage)
         new, metrics = j_step.make_train_step(JNet(jcfg), stage)(state,
@@ -158,9 +164,18 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("num", [1, 2, 6])
 def test_train_step_matches_jax(case, jax_steps, num, monkeypatch):
+    check_train_step(case, jax_steps[num], num, monkeypatch)
+
+
+def check_train_step(case, jax_step, num, monkeypatch, param_ulps=0):
+    """One port train step of stage `num` from `case`'s init against the
+    JAX step `jax_step` (an entry of `jax_train_steps`), to the bounds of
+    this file's docstring; `param_ulps` adds that many float32 ulps of each
+    updated parameter to its bound (an update of ~lr rounds to the ulp of
+    a weight of magnitude 2 or more, 2.4e-7, beyond the 1e-3 lr + 1e-7)."""
     jcfg, batch, v = case
     stage = default_stages()[num - 1]
-    j_params, j_stats, mu, nu, j_metrics, j_perm = jax_steps[num]
+    j_params, j_stats, mu, nu, j_metrics, j_perm = jax_step
     real_greedy = t_ngm.greedy_perm_batch
 
     def same_ties(rank, ks, n1, n2):
@@ -223,7 +238,8 @@ def test_train_step_matches_jax(case, jax_steps, num, monkeypatch):
         lr = {"backbone": stage.backbone_lr, "main": stage.lr,
               "k": stage.k_lr, "cls": stage.cls_lr}[part]
         diff = np.abs(t2n(p) - want_sd[name])[big]
-        assert diff.max() <= 1e-3 * lr + 1e-7, name
+        ulps = param_ulps * np.spacing(np.abs(want_sd[name]))[big]
+        assert (diff <= 1e-3 * lr + 1e-7 + ulps).all(), name
     assert n_live == sum(len(ps) for part, ps in
                          t_state.partition_params(net).items() if live[part])
 
@@ -238,6 +254,32 @@ def test_train_step_matches_jax(case, jax_steps, num, monkeypatch):
             assert not torch.equal(buf, before[name]), name
         else:
             assert torch.equal(buf, before[name]), name
+
+
+@pytest.fixture(scope="module")
+def options_case():
+    """`case` with the model's two options: the same batch with triangles
+    (test_torch_hyperedge._with_triangles), a jitted Flax init of the tiny
+    model with `hyperedge` and `cls_k_features`."""
+    jcfg = tiny_jax_config(sk_tau=0.05, hyperedge=True, cls_k_features=True)
+    batch = test_torch_hyperedge._with_triangles(_mixed_batch(jcfg, seed=3),
+                                                 jcfg.shapes.t_max)
+    v = flax_init(JNet(jcfg), batch, train=False)
+    return jcfg, batch, damp_afau_mixing(randomize_batch_stats(v))
+
+
+def test_train_step_with_hyperedge_and_cls_k_matches_jax(options_case,
+                                                         monkeypatch):
+    """Stage 1 (grad clip; backbone, trunk, k head and classifier train):
+    the triangle affinity, every layer's `lin_t` and the widened `fc` get
+    gradients, and every tensor is held as in test_torch_train; an updated
+    parameter to its bound plus one float32 ulp of itself (this init has
+    weights of magnitude 2 and more in `gnn_0.self0`, whose fan-in is 1: an
+    update of lr = 1e-4 rounds to their 2.4e-7 ulp on either side)."""
+    jres = jax_train_steps(*options_case, (1,))[1]
+    assert "tri_aff.A.weight" in jres[2]
+    assert "gnn_2.lin_t.weight" in jres[2]
+    check_train_step(options_case, jres, 1, monkeypatch, param_ulps=1)
 
 
 def test_stage_one_clips_and_stage_two_skips_the_trunk_backward(case):
@@ -568,10 +610,35 @@ def test_cli_train_smoke_on_the_cpu(tmp_path, monkeypatch):
     assert time.time() - t0 < 300
 
 
+def test_cli_train_smoke_with_hyperedge_and_cls_k_on_the_cpu(tmp_path,
+                                                             monkeypatch):
+    """`cli.train --smoke --hyperedge --cls-k-features` at tiny widths: the
+    model carries both options, the training batches their triangles (at
+    most t_max 96 each), stages 1 and 6 give finite losses, the checkpoint
+    loads back into a model of the same options."""
+    built = build_tiny(monkeypatch)
+    tris, seen = [], []
+    real_fwd = t_ngm.NGMNet.forward
+    monkeypatch.setattr(t_ngm.NGMNet, "forward",
+                        lambda self, b, *a, **k: tris.append(b.tri.shape)
+                        or real_fwd(self, b, *a, **k))
+    report = t_cli_train.main(
+        ["--smoke", "--device", "cpu", "--thread-workers", "--hyperedge",
+         "--cls-k-features", "--checkpoint-dir", str(tmp_path / "ckpt")],
+        on_stage_end=lambda st, hist: seen.append((st.name, hist)))
+    cfg, model, _ = built[0]
+    assert cfg.ngm.hyperedge and cfg.ngm.cls_k_features
+    assert hasattr(model, "tri_aff")
+    assert tris and all(t[2:] == (96, 3) for t in tris)
+    assert [s for s, _ in seen] == ["stage1", "stage6"]
+    assert all(np.isfinite(h[0]["train_total_loss"]) for _, h in seen)
+    assert np.isfinite(report["total_loss"])
+    sd = t_ckpt.restore_params(tmp_path / "ckpt", "stage6_last")
+    build_model(cfg, device="cpu", state_dict=sd)
+
+
 def test_cli_train_options_that_wait_raise(tmp_path):
-    for flags, item in ((["--hyperedge"], "hyperedge"),
-                        (["--cls-k-features"], "hyperedge"),
-                        (["--n-devices", "2"], "parallel"),
+    for flags, item in ((["--n-devices", "2"], "parallel"),
                         (["--mesh", "2x2"], "parallel")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
             t_cli_train.main(flags + ["--device", "cpu",

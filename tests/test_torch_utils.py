@@ -49,13 +49,16 @@ def flax_init(module, *args, **kw):
 
 def tiny_widths(cfg):
     """A port Config (a CLI's) at tiny_jax_config's widths; its shapes,
-    data settings and dtypes kept."""
+    data settings, dtypes and model options (hyperedge, cls_k_features)
+    kept."""
     tiny = to_torch_config(tiny_jax_config())
     return dataclasses.replace(
         cfg, backbone=dataclasses.replace(tiny.backbone,
                                           dtype=cfg.backbone.dtype),
         ngm=dataclasses.replace(tiny.ngm,
-                                compute_dtype=cfg.ngm.compute_dtype))
+                                compute_dtype=cfg.ngm.compute_dtype,
+                                hyperedge=cfg.ngm.hyperedge,
+                                cls_k_features=cfg.ngm.cls_k_features))
 
 
 def build_tiny(monkeypatch):
