@@ -141,6 +141,22 @@ Phases (each prints its own lines; any failure exits non-zero):
               In 22-26 one more call of each path runs under torch.profiler,
               whose count of K1 / K2 / K3 / K6 launches must equal the
               wrappers'.
+ 27. mesh     the edge-sharded path (parallel/) on one card: an NCCL process
+              group of world size 1 in this process, cli.train's full-width
+              model (B=8, n_max 64, f32, TF32 off, sk_tau 0.05) forward with
+              a p = 1 row plan through the real halo exchange (K2 twice a
+              layer: local and halo edges) and one stage-3 train step
+              through the data-group gradient path, against the same
+              weights without a grid (outputs rtol 2e-2 / atol 2e-3,
+              perm_mat flips <= 0.5 %, gradient cosine >= 0.9999 per
+              partition); then p = 2, 4, 8 ranks emulated in this process
+              (the exchange an index copy) at B=8 / N=64 / E=384 (K2, K6)
+              and B=2 / N=256 / E=1536 (K3, K6), C=17, both orientations,
+              forward and backward against the unsharded kernels and the
+              plain version (1e-5 of the range), each rank's launches and
+              ms of one layer beside the unsharded call and the plan's
+              halo_fraction; cli.train --mesh 1x2 / 2x1 where two cards are
+              visible (else a line saying why not)
 
 Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
 X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
@@ -3577,6 +3593,269 @@ def phase_options(tmp):
     return out
 
 
+# ----------------------------------------------------- 27 edge-sharded path
+MESH_NOISE_BOUND = ("afau.row_block.", "afau.final_row_")
+
+
+def partition_cosines(gg, gc):
+    """Per partition, the cosine of the gradients `gg` to `gc` over every
+    tensor but the AFA-U row half (float32-noise-bound at init, phase
+    16)."""
+    out = {}
+    for part in ("backbone", "main", "k", "cls"):
+        names = [n for n in gc if partition_of(n.split(".")[0]) == part
+                 and not n.startswith(MESH_NOISE_BOUND)]
+        if names:
+            a = torch.cat([gg[n].double().reshape(-1) for n in names])
+            b = torch.cat([gc[n].double().reshape(-1) for n in names])
+            out[part] = float(torch.nn.functional.cosine_similarity(a, b,
+                                                                    dim=0))
+    return out
+
+
+def mesh_world_one():
+    """27, part 1: an NCCL process group of world size 1 in this process
+    and its 1 x 1 rank grid; cli.train's full-width model (B = 8, n_max 64,
+    f32, TF32 off; sk_tau 0.05 as phase 16) forward with a p = 1 row plan
+    through the real exchange, then one stage-3 train step through the
+    data-group gradient path, each against the same weights without a grid
+    or a plan (outputs: rtol 2e-2 / atol 2e-3, perm_mat flips <= 0.5 %;
+    gradients: cosine >= 0.9999 per partition, the greedy picks of the
+    one-device step replayed)."""
+    import socket
+
+    import torch.distributed as dist
+    from fpmatch_tpu_torch.parallel.distributed import (initialize,
+                                                        make_hybrid_mesh)
+    from fpmatch_tpu_torch.parallel.edge_partition import plan_batch_rows
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    initialize(DEV, f"tcp://127.0.0.1:{port}", 1, 0, timeout_s=300)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"27 mesh: backend {dist.get_backend()}, not nccl")
+        grid = make_hybrid_mesh(1, 1)
+        cfg = cli_train_config(8)
+        cfg = dataclasses.replace(cfg, ngm=dataclasses.replace(cfg.ngm,
+                                                               sk_tau=0.05))
+        mesh = build_model(cfg, device="cuda", seed=SEED, grid=grid)
+        ref = build_model(cfg, device="cuda", seed=SEED)
+        host = synthetic_pair_batch(cfg, 8, genuine_ratio=0.5,
+                                    n_range=(40, 60), seed=SEED + 27)
+        plan = plan_batch_rows(cfg.shapes.n_max, host.src[:, 0],
+                               host.dst[:, 0], 1)
+        bp, b = host._replace(row_plan=plan).to(DEV), host.to(DEV)
+        row = {"B": 8, "n_max": cfg.shapes.n_max, "backend": "nccl",
+               "world_size": dist.get_world_size()}
+        with tf32_off():
+            reset_counts()
+            out_m = mesh(bp)
+            torch.cuda.synchronize()
+            row["forward_launches"] = read_counts()
+            saved = read_counts()
+            out_r = ref(b)
+            torch.cuda.synchronize()
+            restore_counts(saved)
+        expect_launches("27 mesh forward", row["forward_launches"],
+                        assoc_bucket=6)
+        profiler_launches("27 mesh forward", lambda: mesh(bp))
+        diffs = {k: float((out_m[k] - out_r[k]).abs().max())
+                 for k in ("raw_scores", "ds_mat", "cls_prob", "k_prob")}
+        flips = float((out_m["perm_mat"] - out_r["perm_mat"]).abs().sum())
+        row.update(forward_max_abs_diff=diffs, perm_flips=flips,
+                   perm_cells=out_m["perm_mat"].numel())
+        for k in diffs:
+            if not torch.allclose(out_m[k], out_r[k], rtol=2e-2, atol=2e-3):
+                fail(f"27 mesh forward: {k} differs by {diffs[k]:.3e}")
+        if flips > 0.005 * out_m["perm_mat"].numel():
+            fail(f"27 mesh forward: {flips} perm_mat flips")
+
+        stage = default_stages()[2]
+        tap = GreedyTap()
+        with tf32_off():
+            saved = read_counts()
+            mc, gc = tap.run("record", lambda: step_and_grads(ref, b, stage))
+            torch.cuda.synchronize()
+            restore_counts(saved)
+            reset_counts()
+            t = time.time()
+            state = create_state(mesh, stage)
+            state, metrics = tap.run("replay", lambda: make_train_step(
+                mesh, stage, grid)(state, bp))
+            torch.cuda.synchronize()
+            row["step_s"] = time.time() - t
+            row["step_launches"] = read_counts()
+        expect_launches("27 mesh train step", row["step_launches"],
+                        assoc_bucket=12, assoc_grad=6)
+        mg = {k: float(v) for k, v in metrics.items()}
+        gg = {n: p.grad.detach().cpu() for n, p in mesh.named_parameters()
+              if p.grad is not None}
+        gc = {n: g.cpu() for n, g in gc.items()}
+        if set(gg) != set(gc):
+            fail("27 mesh train step: other parameters trained")
+        cos = partition_cosines(gg, gc)
+        loss_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+                    for k in ("loss", "total_loss", "cls_loss", "ks_loss")}
+        sd_m, sd_r = mesh.state_dict(), ref.state_dict()
+        stats = max(float((sd_m[k] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for k, v in sd_r.items()
+                    if k.endswith(("running_mean", "running_var")))
+        row.update(grad_cosine=cos, loss_rel_err=loss_err,
+                   bn_stats_rel_err_max=stats,
+                   finite=all(bool(torch.isfinite(g).all())
+                              for g in gg.values()))
+        say("[27 mesh world 1] " + json.dumps(row))
+        if not row["finite"]:
+            fail("27 mesh train step: non-finite gradients")
+        if any(c < 0.9999 for c in cos.values()):
+            fail(f"27 mesh train step: gradient cosines {cos}")
+        if not loss_err["loss"] <= 2e-3:
+            fail(f"27 mesh train step: loss differs: {loss_err}")
+        return row
+    finally:
+        dist.destroy_process_group()
+
+
+def emulated_case(rng, B, N, E, C, p, transpose, flush):
+    """27, part 2: p ranks of one edge group in this process
+    (`emulated_row_sharded_aggregate`: the exchange an index copy of the
+    stacked packs), every rank's forward and backward contraction on the
+    kernels, against the unsharded kernel call (`assoc_matvec_auto`) and
+    the plain version (ops.assoc.assoc_matvec with autograd) on the same
+    inputs: Y, dX, dKp and dKe (on the real slots) within 1e-5 of each
+    one's range. Each rank's launches and CUDA-event ms of one layer (its
+    forward), beside the unsharded call's ms and the plan's
+    halo_fraction."""
+    from fpmatch_tpu_torch.parallel.edge_partition import (
+        emulated_row_sharded_aggregate, halo_fraction, plan_batch_rows)
+
+    X, Kp, Ke, s1, d1, s2, d2, m1, m2, _ = bucket_inputs(
+        rng, B, N, E, C, int(0.7 * N), N)
+    W = torch.randn(X.shape, device=DEV)
+    plan = plan_batch_rows(N, s1.cpu().numpy(), d1.cpu().numpy(), p,
+                           transpose=transpose)
+    dplan = plan.to(DEV)
+    real = (m1[:, :, None] & m2[:, None, :]).float()
+
+    def grads(fn):
+        Xg, Kpg, Keg = (t.clone().requires_grad_() for t in (X, Kp, Ke))
+        Y = fn(Xg, Kpg, Keg)
+        (Y * W).sum().backward()
+        torch.cuda.synchronize()
+        return {"Y": Y.detach(), "dX": Xg.grad, "dKp": Kpg.grad,
+                "dKe": Keg.grad * real}
+
+    saved = read_counts()
+    reset_counts()
+    got = grads(lambda x, kp, ke: emulated_row_sharded_aggregate(
+        x, kp, ke, dplan, s2, d2, e1_mask=m1, e2_mask=m2,
+        transpose=transpose))
+    launches = read_counts()
+    kern = grads(lambda x, kp, ke: ops_assoc.assoc_matvec_auto(
+        x, kp, ke, s1, d1, s2, d2, transpose=transpose, e1_mask=m1,
+        e2_mask=m2))
+    plain = grads(lambda x, kp, ke: assoc_matvec(x, kp, ke, s1, d1, s2, d2,
+                                                 transpose=transpose))
+    err = {f"{k}_vs_{name}": relerr(got[k], ref[k])
+           for name, ref in (("kernel", kern), ("plain", plain))
+           for k in got}
+    if not all(e <= 1e-5 for e in err.values()):
+        fail(f"27 emulated p={p} N={N} transpose={transpose}: {err}")
+
+    # one layer's forward per rank, CUDA events, 10 turns
+    events = {q: [] for q in range(p)}
+    counts = {}
+
+    def on_rank(q, fn):
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = fn()
+        end.record()
+        events[q].append((start, end))
+        after = read_counts()
+        counts[q] = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+        return y
+
+    with torch.no_grad():
+        for _ in range(10):
+            emulated_row_sharded_aggregate(X, Kp, Ke, dplan, s2, d2,
+                                           e1_mask=m1, e2_mask=m2,
+                                           transpose=transpose,
+                                           on_rank=on_rank)
+        torch.cuda.synchronize()
+        unsharded_ms = time_ms(lambda: ops_assoc.assoc_matvec_auto(
+            X, Kp, Ke, s1, d1, s2, d2, transpose=transpose, e1_mask=m1,
+            e2_mask=m2), reps=10, flush=flush)
+    restore_counts(saved)
+    row = {"B": B, "N": N, "E": E, "C": C, "p": p, "transpose": transpose,
+           "halo_fraction": halo_fraction(plan), "launches_fwd_bwd": launches,
+           "rank_launches_fwd": [counts[q] for q in range(p)],
+           "rank_ms_fwd": [float(np.median([s.elapsed_time(e)
+                                            for s, e in events[q]]))
+                           for q in range(p)],
+           "unsharded_ms": unsharded_ms, "max_rel_err": max(err.values()),
+           "max_abs_err": max(float((got[k] - kern[k]).abs().max())
+                              for k in got)}
+    say("[27 emulated] " + json.dumps(row))
+    return row
+
+
+def phase_mesh():
+    """27: the edge-sharded path (parallel/) on one card; returns its
+    JSON."""
+    t = time.time()
+    out = {"world_1": mesh_world_one()}
+    rng = np.random.default_rng(SEED + 270)
+    flush = tune_univ.l2_flush(DEV)
+    out["emulated"] = [emulated_case(rng, B, N, E, 17, p, tr, flush)
+                       for B, N, E in ((8, 64, 384), (2, 256, 1536))
+                       for tr in (True, False) for p in (2, 4, 8)]
+    kernels = {k for r in out["emulated"] for k in r["launches_fwd_bwd"]
+               if r["launches_fwd_bwd"][k]}
+    if not {"assoc_bucket", "assoc_large", "assoc_grad"} <= kernels:
+        fail(f"27 emulated: kernels launched {sorted(kernels)}")
+    n = torch.cuda.device_count()
+    if n > 1:
+        out["cli"] = {}
+        for mesh in ("1x2", "2x1"):
+            out["cli"][mesh] = run_mesh_cli(mesh)
+    else:
+        say(f"[27 cli] cli.train --mesh 1x2 / 2x1 not run: {n} card "
+            f"visible, a mesh of two ranks needs two (NCCL puts one rank "
+            f"on a card)")
+    out["wall_s"] = time.time() - t
+    say(f"[27] the edge-sharded phase took {out['wall_s']:.1f} s")
+    return out
+
+
+def run_mesh_cli(mesh):
+    """cli.train --mesh on the visible cards: stage 1, one epoch on a
+    small synthetic split (the ranks spawned by the CLI)."""
+    with tempfile.TemporaryDirectory(prefix="fpm_mesh_") as tmp:
+        root = f"{tmp}/Synthetic"
+        generate_synthetic_dataset(root, fingers_per_split=(6, 3, 2),
+                                   n_pores=110, seed=SEED)
+        t = time.time()
+        report = cli_train.main(
+            ["--data-root", root, "--stages", "1", "--epochs", "1",
+             "--passes", "1", "--length", "16", "--test-length", "8",
+             "--thread-workers", "--mesh", mesh,
+             "--checkpoint-dir", f"{tmp}/ckpt"])
+        row = {"mesh": mesh, "wall_s": time.time() - t,
+               "report": {k: float(v) for k, v in report.items()}}
+    say(f"[27 cli {mesh}] " + json.dumps(row))
+    if not np.isfinite(row["report"]["total_loss"]):
+        fail(f"27 cli {mesh}: non-finite loss")
+    return row
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -3665,6 +3944,7 @@ def main():
         parity21 = phase_train_parity_bf16()
         train21 = phase_train_bf16(tmp, train_runs)
         options = phase_options(tmp)
+        mesh27 = phase_mesh()
     parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
                                                  + 1]).resolve())
               if "--parent" in sys.argv[1:] else None)
@@ -3787,6 +4067,23 @@ def main():
     ks[2]["launches_options"] = {
         "23_evaluate_large": options["evaluate"]["assoc_large"]["launches"][
             "assoc_large"]}
+    # the edge-sharded path (phase 27): per rank, the forward of the world
+    # size 1 model and its stage-3 step; the emulated ranks' forward and
+    # backward at N = 64 (K2, K6) and N = 256 (K3, K6), all p and
+    # orientations together
+    w1, emu = mesh27["world_1"], mesh27["emulated"]
+    for k, name in ((ks[1], "assoc_bucket"), (ks[5], "assoc_grad")):
+        k["launches_mesh"] = {
+            "27_forward_per_rank": w1["forward_launches"][name],
+            "27_train_step_per_rank": w1["step_launches"][name],
+            "27_emulated_N64": sum(r["launches_fwd_bwd"].get(name, 0)
+                                   for r in emu if r["N"] == 64)}
+    ks[5]["launches_mesh"]["27_emulated_N256"] = sum(
+        r["launches_fwd_bwd"].get("assoc_grad", 0) for r in emu
+        if r["N"] == 256)
+    ks[2]["launches_mesh"] = {"27_emulated_N256": sum(
+        r["launches_fwd_bwd"].get("assoc_large", 0) for r in emu
+        if r["N"] == 256)}
     ks[5]["launches_options"] = {
         "24_train_step": options["train_step"]["launches"]["assoc_grad"],
         "26_overfit": options["overfit"]["launches"]["assoc_grad"]}
@@ -3826,6 +4123,8 @@ def main():
         "train": train21}}))
     # the matcher's options: hyperedge, cls-k, the other backbones, overfit
     say(json.dumps({"options": options}))
+    # the edge-sharded path: world size 1 over NCCL, the emulated ranks
+    say(json.dumps({"mesh": mesh27}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

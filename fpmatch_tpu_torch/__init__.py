@@ -25,6 +25,9 @@ as their JAX counterparts:
   train/    train and eval steps, the permutation loss, the per-stage AdamW
             over parameter partitions, the warmup + plateau scheduler, the
             curriculum loop, checkpoint files
+  parallel/ the data x edge rank grid (torch.distributed, NCCL / gloo): the
+            row-sharded association graph with its halo all-to-all, global
+            batch statistics and gradient sums (`cli.train --mesh DxE`)
   utils/    match drawings, the metrics logger
   poredet/  the pore detector: patch-CNN family, full-image inference, DPF
   cli/      entry points (single-pair serving: `cli.match`; batched

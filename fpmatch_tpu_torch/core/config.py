@@ -2,9 +2,9 @@
 
 Field-for-field the same tree as the JAX package's `core/config.py`: the
 weight converter, the CLIs and the parity tests rely on the names and the
-defaults. Fields that configure code not ported yet (training stages, mesh)
-are kept so a config round-trips between the two packages; `default_stages`
-is here because evaluation composes its loss from the last stage's flags.
+defaults, so a config round-trips between the two packages. `MeshConfig`
+is kept for that alone: the rank grid comes from `cli.train`'s `--mesh` /
+`--n-devices`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class BackboneConfig:
     features from layer4 (stride 32, 512ch), global feature from a global
     max-pool of layer4."""
 
-    kind: str = "resnet18"   # "vgg16" / "vgg16_bn" / "none" are not ported
+    kind: str = "resnet18"   # or "vgg16" / "vgg16_bn" / "none"
     node_channels: int = 256
     edge_channels: int = 512
     dtype: str = "float32"   # or "bfloat16": bf16 convolutions, f32 BatchNorm
@@ -117,8 +117,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class StageConfig:
-    """One curriculum stage (the train step is not ported yet; evaluation
-    reads the loss_* flags)."""
+    """One curriculum stage: what trains, its learning rates and schedule,
+    and which loss terms it sums (evaluation reads the loss_* flags too)."""
 
     name: str = "stage1"
     num_epochs: int = 10

@@ -23,7 +23,7 @@ from __future__ import annotations
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -297,7 +297,13 @@ class DataLoader:
     :param cache: keep the samples (and, with `device_prefetch`, the device
         batches) of the first pass; only sound when the output does not
         depend on the epoch (no shuffle, no augmentation).
-    :param host_batch_hook: host-side batch decoration before transfer.
+    :param host_batch_hook: host-side batch decoration before transfer
+        (e.g. the row plan of the edge-sharded path).
+    :param shard: (d, D): yield slice d of D of every batch (the rank's
+        part of the global batch under a rank grid; `batch_size` stays the
+        global one and must be divisible by D). Only that slice's samples
+        are loaded, so the slice is taken before collation and the pinned /
+        side-stream copy.
     """
 
     def __init__(self, dataset: PairDataset, cfg: Config, *,
@@ -305,11 +311,15 @@ class DataLoader:
                  num_workers: Optional[int] = None, drop_last: bool = True,
                  use_processes: Optional[bool] = None, cache: bool = False,
                  device=None, device_prefetch: bool = False,
-                 host_batch_hook=None):
+                 host_batch_hook=None, shard: Optional[tuple] = None):
         self.dataset = dataset
         self.cfg = cfg
         self.host_batch_hook = host_batch_hook
         self.batch_size = batch_size or cfg.data.batch_size
+        if shard is not None and self.batch_size % shard[1]:
+            raise ValueError(f"batch size {self.batch_size} not divisible "
+                             f"by data axis {shard[1]}")
+        self.shard = shard
         self.shuffle = shuffle
         self.num_workers = (cfg.data.num_workers if num_workers is None
                             else num_workers)
@@ -317,7 +327,7 @@ class DataLoader:
         self.use_processes = (cfg.data.worker_processes
                               if use_processes is None else use_processes)
         self.cache = cache and not shuffle and not dataset.augment
-        self._cached: Optional[List[PairSample]] = None
+        self._cached: Optional[Dict[int, PairSample]] = None
         if device_prefetch and device is None:
             raise ValueError("device_prefetch needs a device")
         self.device = device
@@ -373,6 +383,8 @@ class DataLoader:
             self._copy_stream = torch.cuda.Stream(device=self.device)
 
         def put(a):
+            if isinstance(a, tuple):            # a row plan's arrays
+                return type(a)(*(put(x) for x in a))
             if not isinstance(a, np.ndarray):
                 return a
             t = torch.from_numpy(a)
@@ -393,8 +405,9 @@ class DataLoader:
         consumer = torch.cuda.current_stream(self.device)
         consumer.wait_event(done)
         for t in dev_batch:
-            if isinstance(t, torch.Tensor):
-                t.record_stream(consumer)
+            for u in (t if isinstance(t, tuple) else (t,)):
+                if isinstance(u, torch.Tensor):
+                    u.record_stream(consumer)
         return dev_batch
 
     def _prefetch_iter(self, host_iter) -> Iterator:
@@ -417,6 +430,10 @@ class DataLoader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is not None:
+            d, n = self.shard
+            batches = [b[d * len(b) // n:(d + 1) * len(b) // n]
+                       for b in batches]
         epoch = self.epoch
         self.epoch += 1
 
@@ -426,14 +443,15 @@ class DataLoader:
                               pinned)
             return
 
-        filling = [] if self.cache else None
-        for samples in self._sample_batches(batches, epoch):
+        filling = {} if self.cache else None
+        for idxs, samples in zip(batches,
+                                 self._sample_batches(batches, epoch)):
             if filling is not None:
-                filling.extend(samples)
+                filling.update(zip((int(i) for i in idxs), samples))
             yield collate(samples, self.cfg, pinned)
         if filling is not None:
-            # shuffle=False: filling is samples [0..K) in index order, and
-            # every future epoch requests exactly those indices
+            # shuffle=False: every future epoch requests exactly these
+            # indices
             self._cached = filling
 
     def _sample_batches(self, batches, epoch) -> Iterator[List[PairSample]]:

@@ -40,6 +40,23 @@ def conv(layer: nn.Conv2d, x: torch.Tensor,
     return y + layer.bias.to(dtype).reshape(1, -1, 1, 1)
 
 
+def batch_stats(x, mask, group):
+    """Biased per-channel (mean, var) of x (B, C, H, W) over the cells
+    where `mask` (B, 1, H, W; None: everywhere) is 1, taken over the batch
+    slices of all ranks of `group`: the count, the sum and then the
+    centered sum of squares are summed over the group, with a gradient
+    through each sum (`parallel.distributed.all_reduce_sum`)."""
+    from ..parallel.distributed import all_reduce_sum
+
+    m = torch.ones_like(x[:, :1]) if mask is None else mask
+    cnt = torch.clamp(all_reduce_sum((m * torch.ones_like(x)).sum(
+        dim=(0, 2, 3)), group), min=1.0)
+    mean = all_reduce_sum((x * m).sum(dim=(0, 2, 3)), group) / cnt
+    dev = torch.square(x - mean.reshape(1, -1, 1, 1)) * m
+    var = all_reduce_sum(dev.sum(dim=(0, 2, 3)), group) / cnt
+    return mean, var
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with `flax.linen.BatchNorm`'s semantics (momentum 0.9, eps
     1e-5), the mode given per call, on a float32 copy of its input (its
@@ -48,7 +65,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics move to `0.9 old + 0.1 batch` with the BIASED batch variance
     (`nn.BatchNorm2d` would fold in the unbiased one, drifting from the JAX
     package by n / (n - 1) every step). Same parameters and buffers as
-    `nn.BatchNorm2d`, so state_dicts are unchanged."""
+    `nn.BatchNorm2d`, so state_dicts are unchanged.
+
+    `group` (set by `NGMNet` under a rank grid: its data group): train-mode
+    statistics are those of the global batch, the batch slices of the
+    group's ranks together (`batch_stats`), as under the JAX package's
+    GSPMD-sharded batch."""
+
+    group = None
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -59,7 +83,10 @@ class BatchNorm2d(nn.BatchNorm2d):
             return nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps)
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        if self.group is None:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        else:
+            mean, var = batch_stats(x, None, self.group)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)

@@ -23,6 +23,7 @@ from ..ops.assoc import (assoc_aggregate_mean, assoc_tri_degree,
                          assoc_tri_matvec)
 from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.spline import spline_conv
+from .backbone import batch_stats
 
 
 def dense(layer: nn.Linear, x: torch.Tensor,
@@ -190,7 +191,11 @@ class MaskedBatchNorm(nn.Module):
     normalization does not depend on the padding bucket. `train=True`:
     the biased masked statistics normalize and the running statistics move to
     `0.9 old + 0.1 batch`; `train=False`: the running statistics, which do
-    not look at the mask."""
+    not look at the mask. With `group` (a rank grid's data group, set by
+    `NGMNet`) the masked statistics are those of the global batch
+    (`backbone.batch_stats`)."""
+
+    group = None
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -203,10 +208,13 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask=None, train: bool = False):
         shp = (1, -1, 1, 1)
         if train:
-            cnt = torch.clamp(mask.sum(), min=1.0)
-            mean = (x * mask).sum(dim=(0, 2, 3)) / cnt
-            var = (torch.square(x - mean.reshape(shp)) * mask
-                   ).sum(dim=(0, 2, 3)) / cnt
+            if self.group is None:
+                cnt = torch.clamp(mask.sum(), min=1.0)
+                mean = (x * mask).sum(dim=(0, 2, 3)) / cnt
+                var = (torch.square(x - mean.reshape(shp)) * mask
+                       ).sum(dim=(0, 2, 3)) / cnt
+            else:
+                mean, var = batch_stats(x, mask, self.group)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

@@ -17,10 +17,20 @@ ported:
   * `univ_plan` (UNIV-scale single-pair serving): the three aggregations go
     through `kernels.assoc_univ_v3.assoc_matvec_univ_v3` — the CUDA kernel on
     a CUDA device — and feed `AssocGNNLayerBatched`. Inference only, as in
-    the JAX package, where no trainer reaches it.
+    the JAX package, where no trainer reaches it;
+  * `batch.row_plan` (a `parallel.edge_partition.BatchRowPlan`) with a rank
+    grid (`grid`, `parallel.distributed.RankGrid`): the three aggregations
+    run row-sharded over the grid's edge group
+    (`parallel.edge_partition.row_sharded_aggregate`: one halo all_to_all
+    per layer, each rank's rows on `assoc_matvec_auto`, the rows
+    all-gathered) and feed `AssocGNNLayerBatched`; everything else runs
+    alike on the ranks of an edge group. The UNIV route keeps precedence.
 
-Every configuration of the JAX model is taken but the edge-sharded mesh
-(`batch.row_plan`, which raises naming its ROADMAP.md item):
+Under a rank grid the BatchNorms of the backbone and of the match classifier
+take train-mode statistics over the grid's data group (the global batch),
+whether or not the batch carries a row plan.
+
+Every configuration of the JAX model is taken:
 
   * `backbone.kind`: "resnet18", "vgg16" / "vgg16_bn" (`models/vgg.py`), or
     "none", where `batch.features` (B, 2, N, F) replace the images
@@ -66,11 +76,13 @@ from ..ops.masking import length_mask
 from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.soft_topk import greedy_perm_batch, soft_topk_batch
 from ..ops.spline import edge_pseudo_coords, hyperedge_angle_attrs
+from ..parallel.edge_partition import BatchRowPlan, row_sharded_aggregate
 from .afau import AFAUEncoder
-from .backbone import ResNet18Backbone
+from .backbone import BatchNorm2d, ResNet18Backbone
 from .vgg import NoBackbone, VGG16Backbone
 from .layers import (AssocGNNLayer, AssocGNNLayerBatched,
-                     InnerProductAffinity, MatchClassifier, SplineNet, remat)
+                     InnerProductAffinity, MaskedBatchNorm, MatchClassifier,
+                     SplineNet, remat)
 
 
 class PairBatch(NamedTuple):
@@ -93,7 +105,8 @@ class PairBatch(NamedTuple):
     # precomputed per-keypoint features of the non-image pathway
     # (cfg.backbone.kind == "none"; the images are then ignored)
     features: Optional[object] = None   # (B, 2, N, F) float32
-    row_plan: Optional[object] = None   # edge-sharded path: not ported yet
+    # edge-sharded path: a parallel.edge_partition.BatchRowPlan
+    row_plan: Optional[object] = None
 
     @property
     def batch_size(self):
@@ -102,17 +115,14 @@ class PairBatch(NamedTuple):
     def to(self, device) -> "PairBatch":
         """Every array field as a tensor on `device`."""
         def conv(a):
+            if isinstance(a, BatchRowPlan):
+                return a.to(device)
             if a is None or not isinstance(a, (np.ndarray, torch.Tensor)):
                 return a
             if isinstance(a, np.ndarray) and not a.flags.writeable:
                 a = a.copy()
             return torch.as_tensor(a).to(device)
         return PairBatch(*(conv(a) for a in self))
-
-
-def _waits(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, {item})")
 
 
 class NGMNet(nn.Module):
@@ -127,10 +137,14 @@ class NGMNet(nn.Module):
         `ngm.compute_dtype == "bfloat16"`, as in the JAX model.
     :param feature_dim: width F of `batch.features`, needed (only) by
         `backbone.kind == "none"`, whose projection it sizes.
+    :param grid: this rank's `parallel.distributed.RankGrid` (the JAX
+        model's `mesh`, `edge_axis` and `batch_axis`): needed by a batch
+        with a `row_plan`, and makes the train-mode BatchNorm statistics
+        those of the grid's data group.
     """
 
     def __init__(self, cfg: Config, univ_plan=None, univ_bf16: bool = False,
-                 feature_dim: Optional[int] = None):
+                 feature_dim: Optional[int] = None, grid=None):
         super().__init__()
         ngm, bb = cfg.ngm, cfg.backbone
         if bb.kind not in ("resnet18", "vgg16", "vgg16_bn", "none"):
@@ -186,6 +200,12 @@ class NGMNet(nn.Module):
         self.match_cls = MatchClassifier(
             channels=ngm.match_cls_channels,
             extra_features=3 if ngm.cls_k_features else 0)
+        # the rank grid: its data group gives the train-mode BatchNorms the
+        # global batch's statistics
+        self.grid = grid
+        for m in self.modules():
+            if isinstance(m, (BatchNorm2d, MaskedBatchNorm)):
+                m.group = None if grid is None else grid.data_group
         self.register_buffer("norm_means", torch.tensor(
             cfg.data.norm_means, dtype=torch.float32), persistent=False)
         self.register_buffer("norm_std", torch.tensor(
@@ -223,9 +243,6 @@ class NGMNet(nn.Module):
                  bn_main: bool, bn_cls: bool) -> Dict[str, torch.Tensor]:
         cfg = self.cfg.ngm
         cdt = self.compute_dtype
-        if batch.row_plan is not None:
-            raise _waits("the edge-sharded path (batch.row_plan)",
-                         "Queue A: parallel/")
         B, two, H, W, C_in = batch.images.shape
         N = batch.points.shape[2]
         E = batch.src.shape[2]
@@ -318,6 +335,16 @@ class NGMNet(nn.Module):
         emb = Kp[..., None] if cfg.first_order else torch.ones(
             (B, N, N, 1), dtype=Kp.dtype, device=dev)
         kp_present = vmask.to(Kp.dtype)
+
+        def mean_degree():
+            """(B, N, N, 1) rownnz(K^T), at least 1: the routes that
+            aggregate outside `AssocGNNLayer` divide by it."""
+            deg = assoc_degree(kp_present, edge_mask[:, 0], edge_mask[:, 1],
+                               batch.src[:, 0], batch.dst[:, 0],
+                               batch.src[:, 1], batch.dst[:, 1], N, N,
+                               transpose=True)
+            return torch.clamp(deg, min=1.0)[..., None]
+
         if plan is not None:
             # ---- UNIV-scale single-pair serving route ---------------------
             if B != 1:
@@ -328,11 +355,7 @@ class NGMNet(nn.Module):
                     isinstance(plan, UnivPlanDev)
                     and plan.in1_slot.device != dev):
                 plan = plan.to(dev)
-            deg = assoc_degree(kp_present, edge_mask[:, 0], edge_mask[:, 1],
-                               batch.src[:, 0], batch.dst[:, 0],
-                               batch.src[:, 1], batch.dst[:, 1], N, N,
-                               transpose=True)
-            deg = torch.clamp(deg, min=1.0)[..., None]
+            deg = mean_degree()
             kernel_bf16 = self.univ_bf16 or cdt == torch.bfloat16
             for i in range(cfg.gnn_layers):
                 xin = emb[0].bfloat16() if kernel_bf16 else emb[0]
@@ -340,6 +363,23 @@ class NGMNet(nn.Module):
                 layer = getattr(self, f"gnn_{i}")
                 emb = AssocGNNLayerBatched.forward(layer, emb, y[None] / deg,
                                                    kp_present, n1, n2)
+        elif batch.row_plan is not None:
+            # ---- edge-sharded route over the grid's edge group ------------
+            if self.grid is None:
+                raise ValueError("batch.row_plan set but NGMNet has no rank "
+                                 "grid")
+            if cfg.hyperedge:
+                raise NotImplementedError(
+                    "hyperedge + edge sharding not combined")
+            deg = mean_degree()
+            for i in range(cfg.gnn_layers):
+                xin = emb.to(cdt)
+                agg = row_sharded_aggregate(
+                    xin, Kp, Ke, batch.row_plan, batch.src[:, 1],
+                    batch.dst[:, 1], self.grid, e1_mask=edge_mask[:, 0],
+                    e2_mask=edge_mask[:, 1]) / deg
+                emb = AssocGNNLayerBatched.forward(
+                    getattr(self, f"gnn_{i}"), xin, agg, kp_present, n1, n2)
         else:
             for i in range(cfg.gnn_layers):
                 emb = getattr(self, f"gnn_{i}")(
@@ -454,11 +494,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def build_model(cfg: Config, device="cuda", seed: int = 0, state_dict=None,
                 univ_plan=None, univ_bf16: bool = False,
-                feature_dim: Optional[int] = None) -> NGMNet:
+                feature_dim: Optional[int] = None, grid=None) -> NGMNet:
     """An NGMNet on `device` (default `cuda`; raises when that is asked for
     and there is no GPU), with weights from `state_dict` or, without one,
     initialised from `seed`. `feature_dim` (backbone kind "none") is read
-    from `state_dict` when it is not given."""
+    from `state_dict` when it is not given; `grid` is NGMNet's."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -466,7 +506,7 @@ def build_model(cfg: Config, device="cuda", seed: int = 0, state_dict=None,
             and "backbone.proj.weight" in state_dict:
         feature_dim = state_dict["backbone.proj.weight"].shape[1]
     model = NGMNet(cfg, univ_plan=univ_plan, univ_bf16=univ_bf16,
-                   feature_dim=feature_dim)
+                   feature_dim=feature_dim, grid=grid)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

@@ -12,6 +12,14 @@ next stage starts from.
 `train_step_ms` / `train_pairs_per_s` are timed from the second step of an
 epoch to its last, on the host clock, with the device synchronised before
 each reading on a CUDA device.
+
+Under a rank grid (`grid`) every rank trains and validates its slice of each
+batch (the metrics, and so the schedule, early stopping and best state, are
+the global batch's on every rank); rank 0 alone writes the checkpoints (its
+model's own state_dict, which loads into a one-device model) and runs the
+periodic test evaluation (given the test loader only there: whole batches,
+no row plan, the one-device route), and a barrier follows each. Logging is
+the caller's: it gives the other ranks a silent `log_fn`.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import StageConfig
 from ..evaluation.metrics import verification_metrics
@@ -70,11 +79,15 @@ def train_stage(model: NGMNet, state: TrainState, stage: StageConfig,
                 passes_per_epoch: int = 3, eval_every: int = 5,
                 early_stop_patience: int = 10,
                 log_fn: Callable[[str], None] = logger.info,
-                metrics_logger=None, numbered_checkpoints: bool = False):
+                metrics_logger=None, numbered_checkpoints: bool = False,
+                grid=None):
     """Run one curriculum stage; returns (state holding the best weights,
-    history)."""
-    train_step = make_train_step(model, stage)
-    eval_step = make_eval_step(model, stage)
+    history). Under `grid`, checkpoints are written by rank 0 only."""
+    on_grid = {} if grid is None else {"grid": grid}
+    train_step = make_train_step(model, stage, **on_grid)
+    eval_step = make_eval_step(model, stage, **on_grid)
+    if grid is not None and grid.rank != 0:
+        checkpoint_dir = None
     sched = WarmupPlateau(base_lrs=base_lrs(stage),
                           warmup_epochs=stage.warmup_epochs,
                           factor=stage.lr_decay, patience=stage.patience)
@@ -158,12 +171,15 @@ def train_stage(model: NGMNet, state: TrainState, stage: StageConfig,
                 save_checkpoint(checkpoint_dir,
                                 f"{stage.name}_epoch{epoch:04d}", state,
                                 extra={"stage": stage.name, "epoch": epoch})
+        _barrier(grid)
 
-        if test_loader is not None and (epoch + 1) % eval_every == 0:
-            tm = evaluate_verification(model, stage, test_loader)
-            log_fn(f"[{stage.name}] epoch {epoch} test: "
-                   f"EER={tm.get('eer', float('nan')):.4f} "
-                   f"ROC-AUC={tm.get('roc_auc', float('nan')):.4f}")
+        if (epoch + 1) % eval_every == 0:
+            if test_loader is not None:
+                tm = evaluate_verification(model, stage, test_loader)
+                log_fn(f"[{stage.name}] epoch {epoch} test: "
+                       f"EER={tm.get('eer', float('nan')):.4f} "
+                       f"ROC-AUC={tm.get('roc_auc', float('nan')):.4f}")
+            _barrier(grid)
 
         if bad_epochs >= early_stop_patience:
             log_fn(f"[{stage.name}] early stop at epoch {epoch}")
@@ -171,6 +187,11 @@ def train_stage(model: NGMNet, state: TrainState, stage: StageConfig,
 
     state.restore(best)
     return state, history
+
+
+def _barrier(grid) -> None:
+    if grid is not None:
+        dist.barrier()
 
 
 def run_curriculum(model: NGMNet, stages, train_loader, val_loader, *,

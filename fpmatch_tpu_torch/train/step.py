@@ -17,12 +17,22 @@ BatchNorm stays on its running statistics.
 The JAX package binds a UNIV plan to its model; here the model takes the plan
 per call, so every step carries `univ_plan` down to the forward. A step built
 without it sends a UNIV request's aggregations down the bucket route.
+
+Under a rank grid (`grid`, `parallel.distributed.RankGrid`: the batch is this
+rank's slice of the global batch) the steps compute what the JAX package's
+GSPMD step computes on the global batch: the permutation loss divides by the
+global sum(ns1), the batch means (`cls_loss`, `ks_loss`, `ks_error`,
+`accuracy`) are scaled by 1 / D, so the ranks' losses add up to the global
+one; the metrics are summed over the data group (every rank reports the
+global values), and the train step sums the gradients over the data group
+before clipping (`sync_gradients`).
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import StageConfig
 from ..evaluation.metrics import matching_accuracy
@@ -34,12 +44,17 @@ EVAL_OUTPUTS = ("cls_prob", "k_prob", "perm_mat", "ds_mat")
 
 
 def loss_and_metrics(model: NGMNet, batch: PairBatch, stage: StageConfig,
-                     train: bool = False, hungarian_mask=None, univ_plan=None):
+                     train: bool = False, hungarian_mask=None, univ_plan=None,
+                     grid=None):
     """Forward + the stage's loss terms + matching accuracy. Returns
     (total, (metrics, out)); every value is a tensor on the batch's device.
     `univ_plan` (a `kernels.assoc_univ_v3` plan, B == 1) routes the
     aggregations through the UNIV kernel, as `NGMNet.forward`'s does.
+    Under `grid`, `total` is this rank's share of the global loss and the
+    metrics are the global batch's (see the module docstring).
     """
+    group = None if grid is None else grid.data_group
+    scale = 1.0 if grid is None else 1.0 / grid.data
     bn_kw = {}
     if train and model.cfg.train.bn_follows_trainability:
         # frozen partitions keep their BatchNorm on the running statistics
@@ -49,32 +64,61 @@ def loss_and_metrics(model: NGMNet, batch: PairBatch, stage: StageConfig,
                     univ_plan=univ_plan, **bn_kw)
         n1 = batch.n_nodes[:, 0]
         n2 = batch.n_nodes[:, 1]
-        perm_loss = permutation_loss(out["ds_mat"], batch.gt_perm, n1, n2)
+        perm_loss = permutation_loss(out["ds_mat"], batch.gt_perm, n1, n2,
+                                     group=group)
+        ks_loss = out["ks_loss"] * scale
+        cls_loss = out["cls_loss"] * scale
         total = torch.zeros((), device=perm_loss.device)
         if stage.loss_perm:
             total = total + perm_loss
         if stage.loss_ks:
-            total = total + out["ks_loss"]
+            total = total + ks_loss
         if stage.loss_cls:
-            total = total + out["cls_loss"]
+            total = total + cls_loss
         acc = torch.mean(matching_accuracy(out["perm_mat"], batch.gt_perm,
-                                           n1, n2))
-    metrics = {
-        "loss": perm_loss,
-        "total_loss": total,
-        "ks_loss": out["ks_loss"],
-        "ks_error": out["ks_error"],
-        "cls_loss": out["cls_loss"],
-        "accuracy": acc,
-    }
+                                           n1, n2)) * scale
+        metrics = {
+            "loss": perm_loss,
+            "total_loss": total,
+            "ks_loss": ks_loss,
+            "ks_error": out["ks_error"] * scale,
+            "cls_loss": cls_loss,
+            "accuracy": acc,
+        }
+        if group is not None:
+            summed = torch.stack([v.detach().float() for v in
+                                  metrics.values()])
+            dist.all_reduce(summed, group=group)
+            metrics = dict(zip(metrics, summed.unbind()))
     return total, (metrics, out)
 
 
-def make_train_step(model: NGMNet, stage: StageConfig):
+def sync_gradients(params, grid) -> None:
+    """Sum the gradients over the grid's data group (one flat all-reduce);
+    with more than one edge rank, then take the edge group's first rank's
+    sums on every rank of the group, so that the ranks of an edge group,
+    which compute the same gradients, keep bit-identical weights even where
+    a CUDA backward's atomics round differently from rank to rank."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
+        return
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=grid.data_group)
+    if grid.edge > 1:
+        dist.broadcast(flat, src=grid.d * grid.edge, group=grid.edge_group)
+    off = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(flat[off:off + n].view_as(p.grad))
+        off += n
+
+
+def make_train_step(model: NGMNet, stage: StageConfig, grid=None):
     """train_step(state, batch) -> (state, metrics): one forward in train
     mode, the backward of the stage's loss through its live partitions,
-    optax-style global-norm clipping (`stage.grad_clip`) and one AdamW step
-    of `state.optimizer` (made for this stage by `train.state.create_state`,
+    (under `grid`) the gradients summed over the data group, optax-style
+    global-norm clipping (`stage.grad_clip`) and one AdamW step of
+    `state.optimizer` (made for this stage by `train.state.create_state`,
     which also set which parameters require a gradient). Metrics are
     detached tensors on the batch's device."""
 
@@ -82,11 +126,13 @@ def make_train_step(model: NGMNet, stage: StageConfig):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         total, (metrics, _) = loss_and_metrics(model, batch, stage,
-                                               train=True)
+                                               train=True, grid=grid)
         total.backward()
+        params = [p for g in opt.param_groups for p in g["params"]]
+        if grid is not None:
+            sync_gradients(params, grid)
         if stage.grad_clip is not None:
-            clip_by_global_norm_([p for g in opt.param_groups
-                                  for p in g["params"]], stage.grad_clip)
+            clip_by_global_norm_(params, stage.grad_clip)
         opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
@@ -94,12 +140,15 @@ def make_train_step(model: NGMNet, stage: StageConfig):
     return train_step
 
 
-def make_eval_step(model: NGMNet, stage: StageConfig, univ_plan=None):
-    """eval_step(batch) -> (metrics, {cls_prob, k_prob, perm_mat, ds_mat})."""
+def make_eval_step(model: NGMNet, stage: StageConfig, univ_plan=None,
+                   grid=None):
+    """eval_step(batch) -> (metrics, {cls_prob, k_prob, perm_mat, ds_mat}).
+    Under `grid` the metrics are the global batch's, the outputs this
+    rank's slice's."""
 
     def eval_step(batch: PairBatch):
         _, (metrics, out) = loss_and_metrics(model, batch, stage,
-                                             univ_plan=univ_plan)
+                                             univ_plan=univ_plan, grid=grid)
         return metrics, {k: out[k] for k in EVAL_OUTPUTS}
 
     return eval_step

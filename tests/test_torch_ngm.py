@@ -318,14 +318,29 @@ def test_ngm_untouched_init_at_model_temperature():
 
 
 def test_ngm_options_that_wait_raise():
-    """The edge-sharded path (`batch.row_plan`) waits for `parallel/` and
-    raises naming its ROADMAP item; every other option of the JAX model is
-    taken (test_torch_hyperedge, test_torch_configs). Train mode works."""
+    """Every option of the JAX model is taken (test_torch_hyperedge,
+    test_torch_configs, test_torch_parallel); what is left are the JAX
+    model's own refusals of the edge-sharded route: a row plan without a
+    rank grid (ValueError, the JAX model's "no mesh"), and with hyperedge
+    (NotImplementedError). Train mode works."""
+    from fpmatch_tpu_torch.parallel.distributed import RankGrid
+    from fpmatch_tpu_torch.parallel.edge_partition import plan_batch_rows
+
     tcfg = to_torch_config(tiny_jax_config())
     net = NGMNet(tcfg)
     batch = t_synth(tcfg, 1, n_range=(6, 10), image_hw=(32, 48), seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
-        net(batch._replace(row_plan=object()).to("cpu"))
+    plan = plan_batch_rows(tcfg.shapes.n_max, batch.src[:, 0],
+                           batch.dst[:, 0], 2)
+    with pytest.raises(ValueError, match="no rank grid"):
+        net(batch._replace(row_plan=plan).to("cpu"))
+    hcfg = to_torch_config(tiny_jax_config(hyperedge=True))
+    hbatch = t_synth(hcfg, 1, n_range=(6, 10), image_hw=(32, 48), seed=1)
+    # refused before any collective: a grid needs no process group here
+    grid = RankGrid(data=1, edge=2, d=0, e=0, data_group=None,
+                    edge_group=None)
+    with pytest.raises(NotImplementedError,
+                       match="hyperedge \\+ edge sharding not combined"):
+        NGMNet(hcfg, grid=grid)(hbatch._replace(row_plan=plan).to("cpu"))
     assert not net.training
     net.train()                         # train mode works (training ported)
     assert net.training and net.backbone.training

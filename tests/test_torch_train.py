@@ -638,12 +638,21 @@ def test_cli_train_smoke_with_hyperedge_and_cls_k_on_the_cpu(tmp_path,
 
 
 def test_cli_train_options_that_wait_raise(tmp_path):
-    for flags, item in ((["--n-devices", "2"], "parallel"),
-                        (["--mesh", "2x2"], "parallel")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            t_cli_train.main(flags + ["--device", "cpu",
-                                      "--checkpoint-dir", str(tmp_path)])
-        assert item in str(e.value)
+    """Every flag of the JAX CLI is taken; what is left are its refusals of
+    a mesh (test_torch_cli_mesh runs the meshes): a batch size not
+    divisible by the data axis, --n-max not divisible by the edge axis, and
+    on `cuda` more ranks than visible cards (which, without a GPU, is any
+    mesh); `cuda` without a GPU is an error."""
+    for flags, msg in (
+            (["--mesh", "2x1", "--batch-size", "3", "--device", "cpu"],
+             "batch size 3 not divisible by data axis 2"),
+            (["--mesh", "1x3", "--n-max", "64", "--device", "cpu"],
+             "--n-max 64 not divisible by edge axis 3"),
+            (["--mesh", "1x2"] if not torch.cuda.is_available() else
+             ["--mesh", f"{torch.cuda.device_count() + 1}x1"],
+             "needs .* devices, only .* visible")):
+        with pytest.raises(SystemExit, match=msg):
+            t_cli_train.main(flags + ["--checkpoint-dir", str(tmp_path)])
     args = t_cli_train.build_parser().parse_args([])
     assert args.device == "cuda"
     if not torch.cuda.is_available():
