@@ -157,6 +157,23 @@ Phases (each prints its own lines; any failure exits non-zero):
               ms of one layer beside the unsharded call and the plan's
               halo_fraction; cli.train --mesh 1x2 / 2x1 where two cards are
               visible (else a line saying why not)
+ 28. poredet  the pore detector trained on the card: one Adam step of
+              net17nomax against the CPU (TF32 off; loss, batch statistics,
+              gradient cosines, the card's Adam on the CPU's gradients;
+              limits in `poredet_step_parity`), then
+              scripts.train_poredet's main with RESULTS.md's protocol (24 /
+              6 / 6 impressions, 30 epochs, TF32 off): patches, ms a step,
+              each epoch's loss and validation F, the grid's pick, TEST I /
+              II F, TDR, FDR beside the repo's trained detector and DPF;
+              fails below TEST_II F 0.65; the written .npz reloaded detects
+              as the trained model
+ 29. qap      a planted QAP (ops.qap, 20 iterations, tau 0.05) at n = 64 /
+              384 edge slots (K2) and n = 256 / 1536 (K3) against the port's
+              CPU run (1e-4, the same greedy result, recovery >= 0.9,
+              launches = iterations by the wrappers and torch.profiler);
+              assoc_matvec_fused against K3; Gconv, ChannelIndependentConv,
+              DenseAssocGNNLayer and BilinearAffinity against the CPU (1e-5
+              of the range); cli.verify_setup (exit 0)
 
 Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
 X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
@@ -189,6 +206,7 @@ if not torch.cuda.is_available():
 
 from fpmatch_tpu_torch import native
 from fpmatch_tpu_torch.cli import evaluate as cli_evaluate
+from fpmatch_tpu_torch.cli import verify_setup as cli_verify
 from fpmatch_tpu_torch.cli import train as cli_train
 from fpmatch_tpu_torch.cli import match as cli_match
 from fpmatch_tpu_torch.cli import model_config_from_args
@@ -211,31 +229,38 @@ from fpmatch_tpu_torch.kernels import inoculate as k5
 from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch
 from fpmatch_tpu_torch.models import backbone as t_backbone
 from fpmatch_tpu_torch.models import ngm as t_ngm
+from fpmatch_tpu_torch.models import gcn as t_gcn
+from fpmatch_tpu_torch.models import layers as t_layers
 from fpmatch_tpu_torch.models.ngm import build_model
 from fpmatch_tpu_torch.ops import assoc as ops_assoc
-from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_matvec,
-                                         assoc_matvec_chunked)
+from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_dense,
+                                         assoc_matvec, assoc_matvec_chunked,
+                                         assoc_matvec_fused)
 from fpmatch_tpu_torch.ops.hungarian import hungarian_host
+from fpmatch_tpu_torch.ops.qap import qap_objective, qap_power_sinkhorn
+from fpmatch_tpu_torch.ops.soft_topk import greedy_perm
+from fpmatch_tpu_torch.poredet import architectures as pd_arch
+from fpmatch_tpu_torch.poredet import train as pd_train
 from fpmatch_tpu_torch.poredet.dpf import detect_pores_dpf, detect_pores_lemes
 from fpmatch_tpu_torch.poredet.inference import (candidates,
                                                  detect_pores_in_image)
 from fpmatch_tpu_torch.poredet.train import load_detector, validate_full_images
-from fpmatch_tpu_torch.scripts import tune_univ
+from fpmatch_tpu_torch.scripts import train_poredet, tune_univ
 from fpmatch_tpu_torch.train.checkpoints import restore_params
 from fpmatch_tpu_torch.train.state import create_state, partition_of
 from fpmatch_tpu_torch.train.step import (make_eval_step,
                                           make_eval_step_masked,
                                           make_train_step)
+from fpmatch_tpu_torch.utils.profiling import F32_FLOPS as PEAK_F32_FLOPS
+from fpmatch_tpu_torch.utils.profiling import HBM_BYTES_PER_S as PEAK_BYTES_S
 
 SEED = 0
 DEV = torch.device("cuda")
 ROOT = Path(__file__).resolve().parent
 DETECTOR = ROOT / "results" / "poredet" / "net17nomax.npz"
 FIXTURE = ROOT / "tests" / "fixtures" / "PolyU-mini" / "DBII" / "test"
-# published peaks of one H100 SXM (dense): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# the peaks of `bound` (one H100 SXM, dense: HBM bytes/s, f32 FLOP/s
+# outside the tensor cores) are utils.profiling's, which assoc_roofline reads
 T0 = time.time()
 
 
@@ -3155,21 +3180,40 @@ KERNEL_NAMES = {"assoc_univ_v3": "assoc_univ_v3_kernel",
                 "assoc_grad": "assoc_grad_kernel"}
 
 
-def profiler_launches(tag, fn):
+def profiler_launches(tag, fn, warmup=False):
     """One more call of `fn` under torch.profiler: the launches of K1 / K2 /
     K3 / K6 the profiler sees on the device, which must equal the wrappers'
-    counts of the same call (neither is kept in the main path's counts)."""
-    from torch.profiler import ProfilerActivity, profile
+    counts of the same call (neither is kept in the main path's counts).
+    `warmup`: a first call of `fn` in a warm-up step of the profiler's
+    schedule, not counted, before the counted one (without it the profiler
+    once saw 16 of a QAP solve's 20 K2 launches, the first of a short call
+    after the profiler started)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     saved = read_counts()
     reset_counts()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    if warmup:
+        windows = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: windows.append(
+                         p.key_averages())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            reset_counts()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        evs = windows[-1]
+    else:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
     counted = read_counts()
     restore_counts(saved)
-    evs = prof.key_averages()
     seen = {k: sum(e.count for e in evs if name in e.key)
             for k, name in KERNEL_NAMES.items()}
     wrappers = {k: counted[k] for k in KERNEL_NAMES}
@@ -3856,6 +3900,300 @@ def run_mesh_cli(mesh):
     return row
 
 
+# ------------------------------------------- 28 pore-detector training
+# RESULTS.md's protocol of the repo's trained detector (results/poredet/):
+# 24 train / 6 val / 6 test impressions, 30 epochs
+POREDET_PROTOCOL = ("--train-n", "24", "--val-n", "6", "--test-n", "6",
+                    "--epochs", "30")
+POREDET_MIN_TEST_II_F = 0.65
+
+
+def poredet_step_parity():
+    """One Adam step of net17nomax (40 features) from the same initial
+    weights on one patch batch, on the card and on the CPU (TF32 off).
+    Held: the loss within 1e-5, the batch statistics within 1e-5 of each
+    tensor's range, each gradient to a cosine of 0.99999, and the card's
+    Adam step applied to the CPU's gradients within 1e-5 of each
+    parameter's range of the CPU's step. The parameters after each
+    device's own step are reported, not held: Adam's first step moves a
+    weight by lr * g / (|g| + eps), about lr times the sign of g, so where
+    |g| is near the devices' gradient difference (the BatchNorm backward's
+    cancellation) that step follows rounding noise."""
+    imgs, gts = train_poredet.render_set(9000, 3)
+    X, Y = pd_train.make_patch_bank(imgs, gts, 17, SEED)
+    n = min(256, len(X))
+    xb = torch.from_numpy(X[:n]).permute(0, 3, 1, 2).contiguous()
+    yb = torch.from_numpy(Y[:n])
+    lr = 1e-3
+    fresh = lambda dev: pd_arch.lecun_init_(
+        pd_arch.make_architecture("net17nomax"),
+        torch.Generator().manual_seed(SEED)).to(dev)
+    out = {}
+    with tf32_off():
+        for dev in ("cpu", "cuda"):
+            m = fresh(dev)
+            loss = pd_train.train_step(m, pd_train.make_optimizer(m, lr),
+                                       xb.to(dev), yb.to(dev))
+            out[dev] = (m, float(loss))
+        # the card's optimizer on the CPU's gradients
+        (mg, lg), (mc, lc) = out["cuda"], out["cpu"]
+        ma = fresh("cuda")
+        for p, q in zip(ma.parameters(), mc.parameters()):
+            p.grad = q.grad.to(DEV)
+        pd_train.make_optimizer(ma, lr).step()
+    pc = dict(mc.named_parameters())
+    cos = {k: 1.0 if not bool(pc[k].grad.any()) and not bool(p.grad.any())
+           else float(torch.nn.functional.cosine_similarity(
+               p.grad.double().cpu().reshape(-1),
+               pc[k].grad.double().reshape(-1), dim=0))
+           for k, p in mg.named_parameters()}
+    grad_err = {k: relerr(p.grad.cpu(), pc[k].grad)
+                for k, p in mg.named_parameters()}
+    adam_err = {k: relerr(p.detach().cpu(), pc[k].detach())
+                for k, p in ma.named_parameters()}
+    own_err = {k: relerr(p.detach().cpu(), pc[k].detach())
+               for k, p in mg.named_parameters()}
+    sg, sc = mg.state_dict(), mc.state_dict()
+    stats_err = {k: relerr(sg[k].cpu(), sc[k]) for k in sc
+                 if k.endswith(("running_mean", "running_var"))}
+    row = {"batch": n, "loss_card": lg, "loss_cpu": lc,
+           "stats_max_rel_err": max(stats_err.values()),
+           "grad_cosine_min": min(cos.values()),
+           "grad_max_rel_err": max(grad_err.values()),
+           "adam_on_cpu_grads_max_rel_err": max(adam_err.values()),
+           "own_step_params_max_rel_err": max(own_err.values()),
+           "own_step_worst": max(own_err, key=own_err.get),
+           "own_step_max_abs_diff": max(
+               float((p.detach().cpu() - pc[k].detach()).abs().max())
+               for k, p in mg.named_parameters())}
+    say("[28 step] " + json.dumps(row))
+    if (abs(lg - lc) > 1e-5 * abs(lc) or row["stats_max_rel_err"] > 1e-5
+            or row["grad_cosine_min"] < 0.99999
+            or row["adam_on_cpu_grads_max_rel_err"] > 1e-5
+            or row["own_step_max_abs_diff"] > 2 * lr * (1 + 1e-3)):
+        fail(f"28: the card's Adam step differs from the CPU's: {row}")
+    return row
+
+
+def repo_detector_figures():
+    """The TEST rows of the repo's trained detector
+    (results/poredet/metrics.csv, trained under the protocol above)."""
+    import csv
+
+    with open(ROOT / "results" / "poredet" / "metrics.csv") as f:
+        return {r["detector"]: {k: float(r[k]) for k in (
+            "f_score", "true_detection_rate", "false_detection_rate")}
+            for r in csv.DictReader(f) if ":TEST" in r["detector"]}
+
+
+def phase_train_poredet(tmp):
+    """28: the pore detector trained on the card through
+    `python -m fpmatch_tpu_torch.scripts.train_poredet`'s main (TF32 off),
+    after one step against the CPU; returns its JSON."""
+    t = time.time()
+    out = {"step_parity": poredet_step_parity()}
+    argv = ["--arch", "net17nomax", "--out", f"{tmp}/poredet",
+            *POREDET_PROTOCOL, "--device", "cuda"]
+    say(f"[28 train] python -m fpmatch_tpu_torch.scripts.train_poredet "
+        f"{' '.join(argv)}")
+    reset_counts()
+    t1 = time.time()
+    with tf32_off():
+        res = train_poredet.main(
+            argv, log_fn=lambda m: say(f"[28 train] {m}")
+            if "\n" not in m else None)
+    wall = time.time() - t1
+    tr = res["train"]
+    rows = {r["detector"]: r for r in res["rows"]}
+    phases = {k: {m: v[m] for m in ("f_score", "true_detection_rate",
+                                    "false_detection_rate")}
+              for k, v in res["phases"].items()}
+    out.update({
+        "wall_s": wall, "n_patches": tr["n_patches"],
+        "step_ms_median": float(np.median(tr["step_ms"])),
+        "step_ms": tr["step_ms"], "losses": tr["losses"],
+        "val_f": tr["val_f"], "kept_epoch": tr["epoch"],
+        "grid": res["grid"], "phases": phases,
+        "dpf": {k: rows[k]["f_score"] for k in ("dpf_compact",
+                                                 "dpf_lemes")},
+        "repo_figures": repo_detector_figures(), "launches": read_counts()})
+    say(f"[28 train] {tr['n_patches']} patches, "
+        f"{out['step_ms_median']:.2f} ms a step (median of the epochs), "
+        f"kept epoch {tr['epoch']}, grid {res['grid']}, {wall:.1f} s")
+    for k, v in phases.items():
+        say(f"[28 train] {k}: F {v['f_score']:.4f} TDR "
+            f"{v['true_detection_rate']:.4f} FDR "
+            f"{v['false_detection_rate']:.4f} | the repo's trained "
+            f"detector (results/poredet): {out['repo_figures'].get('net17nomax:' + k)}")
+    say(f"[28 train] DPF on the same test images: {out['dpf']}")
+    f2 = phases["TEST_II"]["f_score"]
+    if not f2 >= POREDET_MIN_TEST_II_F:
+        fail(f"28: TEST_II F {f2:.4f} < {POREDET_MIN_TEST_II_F}")
+    # the written .npz, reloaded, detects as the trained model
+    img = train_poredet.render_set(9800, 1)[0][0]
+    kw = dict(probability=res["grid"]["probability"],
+              nms_iou=res["grid"]["nms_iou"], window=17)
+    with tf32_off():
+        mine, _ = detect_pores_in_image(res["model"], img, **kw)
+        back, _ = detect_pores_in_image(
+            load_detector("net17nomax", res["npz"], device="cuda"), img, **kw)
+    if not np.array_equal(mine, back):
+        fail("28: the reloaded .npz detects otherwise than the trained model")
+    out["reload_detections"] = len(back)
+    out["phase_s"] = time.time() - t
+    say(f"[28] the detector's training phase took {out['phase_s']:.1f} s "
+        f"(the reloaded .npz: the same {len(back)} detections)")
+    return out
+
+
+# ---------------------------------------- 29 QAP and the library layers
+def planted_qap(rng, n, e_max):
+    """tests/test_ops.py's planted QAP on a Delaunay graph: graph 2 is graph
+    1 under a random permutation, Kp high on the planted matches, Ke 1 on
+    the real edge pairs and 0 on the padded slots; returns numpy arrays."""
+    _, s1, d1 = delaunay(rng, n)
+    E = min(len(s1), e_max)
+    pad = lambda a: np.concatenate([a[:E], np.zeros(e_max - E, a.dtype)]
+                                   ).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    s1, d1 = pad(s1), pad(d1)
+    s2, d2 = pad(perm[s1[:E]]), pad(perm[d1[:E]])
+    Kp = (np.eye(n)[perm] + 0.05 * rng.uniform(size=(n, n))).astype(
+        np.float32)
+    Ke = np.zeros((e_max, e_max), np.float32)
+    Ke[:E, :E] = 1.0
+    return perm, Kp, Ke, s1, d1, s2, d2, np.arange(e_max) < E
+
+
+def qap_case(n, e_max, kernel, iters=20):
+    """One planted QAP on the card against the port's CPU run; K3 against
+    the fused contraction on its inputs."""
+    rng = np.random.default_rng(SEED + 290 + n)
+    perm, *arrays, mask = planted_qap(rng, n, e_max)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    card = [a.to(DEV) for a in cpu]
+    m = torch.from_numpy(mask).to(DEV)
+    kw = dict(iters=iters, tau=0.05, e1_mask=m, e2_mask=m)
+    want = qap_power_sinkhorn(*cpu, n, n, iters=iters, tau=0.05)
+    reset_counts()
+    got = qap_power_sinkhorn(*card, n, n, **kw)
+    launches = read_counts()
+    tag = f"29 qap n={n}"
+    expect_launches(tag, launches, **{kernel: iters})
+    seen = profiler_launches(tag, lambda: qap_power_sinkhorn(*card, n, n,
+                                                             **kw),
+                             warmup=True)
+    # a solve's wall time after those two (host clock, synchronised;
+    # median of 5), its launches not counted
+    saved = read_counts()
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        qap_power_sinkhorn(*card, n, n, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    ms = float(np.median(ms))
+    restore_counts(saved)
+    err = float((got.cpu() - want).abs().max())
+    hard = greedy_perm(got, float(n), n, n).cpu()
+    same = bool(torch.equal(hard, greedy_perm(want, float(n), n, n)))
+    recovery = float(hard.numpy()[np.arange(n), perm].mean())
+    saved = read_counts()
+    obj = float(qap_objective(hard.to(DEV), *card, e1_mask=m, e2_mask=m))
+    # the fused contraction against K3 on the same inputs, C = 17
+    X = torch.randn((1, n, n, 17), generator=torch.Generator().manual_seed(
+        n)).to(DEV)
+    ops_in = [X, card[0][None], card[1][None]] + [a[None] for a in card[2:]]
+    fused = assoc_matvec_fused(*ops_in, transpose=True)
+    k3 = k23.assoc_matvec_large(*ops_in, transpose=True,
+                                e1_mask=m[None], e2_mask=m[None])
+    restore_counts(saved)
+    row = {"n": n, "E": int(mask.sum()), "e_max": e_max,
+           "assoc_edges": e_max * e_max, "iters": iters, "launches": launches,
+           "profiler_launches": seen, "ms": ms, "max_abs_err_vs_cpu": err,
+           "greedy_equal": same, "recovery": recovery, "objective": obj,
+           "fused_vs_k3_rel_err": relerr(fused, k3)}
+    say(f"[{tag}] " + json.dumps(row))
+    if err > 1e-4 or not same or recovery < 0.9:
+        fail(f"{tag}: soft assignment {err:.2e} from the CPU's (1e-4), "
+             f"greedy equal {same}, recovery {recovery}")
+    if row["fused_vs_k3_rel_err"] > 1e-5:
+        fail(f"{tag}: assoc_matvec_fused differs from K3 by "
+             f"{row['fused_vs_k3_rel_err']:.2e}")
+    return row
+
+
+def layer_cases():
+    """Gconv, ChannelIndependentConv, DenseAssocGNNLayer and
+    BilinearAffinity on the card against the CPU (TF32 off, 1e-5 of the
+    range): B = 8 Delaunay graphs of 64 nodes / 384 edge slots, 32
+    features; K of a 16-node pair materialized by assoc_dense."""
+    rng = np.random.default_rng(SEED + 291)
+    B, N, E, F = 8, 64, 384, 32
+    src = np.zeros((B, E), np.int32)
+    dst = np.zeros((B, E), np.int32)
+    em = np.zeros((B, E), bool)
+    for b in range(B):
+        _, s, d = delaunay(rng, N - b)
+        k = min(len(s), E)
+        src[b, :k], dst[b, :k], em[b, :k] = s[:k], d[:k], True
+    nm = np.arange(N)[None] < (N - np.arange(B))[:, None]
+    x = rng.normal(size=(B, N, F)).astype(np.float32)
+    ef = rng.normal(size=(B, E, 8)).astype(np.float32)
+    perm, Kp, Ke, s1, d1, s2, d2, _ = planted_qap(rng, 16, 96)
+    T = torch.from_numpy
+    K = assoc_dense(*[T(a)[None] for a in (Kp, Ke, s1, d1, s2, d2)], 16, 16)
+    Xa = T(rng.normal(size=(1, 256, 8)).astype(np.float32))
+    am = T(np.arange(256)[None] < 200)
+    Y = T(rng.normal(size=(B, 48, F)).astype(np.float32))
+    torch.manual_seed(SEED)
+    bil = t_layers.BilinearAffinity(F)
+    with torch.no_grad():
+        bil.A.add_(0.1 * torch.randn(F, F))
+    cases = {
+        "Gconv": (t_gcn.Gconv(F, 16), (x, src, dst, em, nm)),
+        "ChannelIndependentConv": (t_gcn.ChannelIndependentConv(F, 8, 16),
+                                   (x, ef, src, dst, em, nm)),
+        "DenseAssocGNNLayer": (t_layers.DenseAssocGNNLayer(8, 16),
+                               (K, Xa, am)),
+        "BilinearAffinity": (bil, (x[:, :48], Y))}
+    out = {}
+    with tf32_off(), torch.no_grad():
+        for name, (mod, args) in cases.items():
+            args = [a if isinstance(a, torch.Tensor) else T(a) for a in args]
+            want = mod(*args)
+            got = copy.deepcopy(mod).to(DEV)(*[a.to(DEV) for a in args])
+            pairs = list(zip(got, want)) if isinstance(want, tuple) \
+                else [(got, want)]
+            out[name] = max(relerr(g.cpu(), w) for g, w in pairs)
+    say("[29 layers] card against CPU, error over range: " + json.dumps(out))
+    bad = {k: v for k, v in out.items() if v > 1e-5}
+    if bad:
+        fail(f"29 layers: {bad}")
+    return out
+
+
+def phase_qap_layers(data_root):
+    """29: the QAP solver on K2 / K3, the library layers, verify_setup."""
+    t = time.time()
+    out = {"qap": [qap_case(64, 384, "assoc_bucket"),
+                   qap_case(256, 1536, "assoc_large")],
+           "layers": layer_cases()}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_verify.main(["--data-root", data_root])
+    for line in buf.getvalue().splitlines():
+        say(f"[29 verify_setup] {line}")
+    if rc != 0:
+        fail(f"29: verify_setup returned {rc}")
+    out["verify_setup_rc"] = rc
+    out["phase_s"] = time.time() - t
+    say(f"[29] QAP, the library layers and verify_setup took "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -3945,6 +4283,8 @@ def main():
         train21 = phase_train_bf16(tmp, train_runs)
         options = phase_options(tmp)
         mesh27 = phase_mesh()
+        poredet28 = phase_train_poredet(tmp)
+        qap29 = phase_qap_layers(f"{tmp}/bucket")
     parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
                                                  + 1]).resolve())
               if "--parent" in sys.argv[1:] else None)
@@ -4084,6 +4424,10 @@ def main():
     ks[2]["launches_mesh"] = {"27_emulated_N256": sum(
         r["launches_fwd_bwd"].get("assoc_large", 0) for r in emu
         if r["N"] == 256)}
+    # the QAP solver's power iteration (phase 29): one launch an iteration
+    for k, row in zip(ks[1:3], qap29["qap"]):
+        k["launches_qap"] = {f"29_qap_n{row['n']}": row["launches"][
+            k["name"]]}
     ks[5]["launches_options"] = {
         "24_train_step": options["train_step"]["launches"]["assoc_grad"],
         "26_overfit": options["overfit"]["launches"]["assoc_grad"]}
@@ -4125,6 +4469,10 @@ def main():
     say(json.dumps({"options": options}))
     # the edge-sharded path: world size 1 over NCCL, the emulated ranks
     say(json.dumps({"mesh": mesh27}))
+    # the detector trained on the card; QAP and the library layers
+    say(json.dumps({"poredet_train": poredet28, "qap_layers": qap29}))
+    say(f"[28-29] the two phases took {poredet28['phase_s']:.1f} + "
+        f"{qap29['phase_s']:.1f} s")
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

@@ -188,7 +188,7 @@ def load_model(cfg, args, log):
         "latest")
     state_dict = None
     if ckpt_name:
-        state_dict = restore_params(args.checkpoint_dir, ckpt_name)
+        state_dict = restore_params(args.checkpoint_dir, ckpt_name, cfg)
         log(f"restored checkpoint {ckpt_name}")
     else:
         log("WARNING: no checkpoint found — evaluating random weights")

@@ -309,7 +309,7 @@ def load_model(cfg, args):
         "latest")
     state_dict = None
     if ckpt_name:
-        state_dict = restore_params(args.checkpoint_dir, ckpt_name)
+        state_dict = restore_params(args.checkpoint_dir, ckpt_name, cfg)
     else:
         print("WARNING: no checkpoint found — scoring with random weights",
               file=sys.stderr)

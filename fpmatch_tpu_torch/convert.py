@@ -37,6 +37,21 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (str(k),), np.asarray(v)
 
 
+def read_flax_npz(path) -> Dict:
+    """A flat `.npz` of a Flax variable tree (keys `/`-joined paths, as the
+    JAX package's `poredet.train.save_variables` writes any tree) back into
+    nested numpy dicts."""
+    out: Dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *mods, leaf = key.split("/")
+            node = out
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = z[key]
+    return out
+
+
 def flax_tree_to_state_dict(params: Mapping, batch_stats: Mapping = None
                             ) -> Dict[str, torch.Tensor]:
     """The naming rules above applied to any Flax module's variables (no
@@ -105,4 +120,36 @@ def pore_variables_to_state_dict(variables: Mapping
     for k in [k for k in out if k.endswith(".running_mean")]:
         out[k[:-len("running_mean")] + "num_batches_tracked"] = \
             torch.zeros((), dtype=torch.long)
+    return out
+
+
+def state_dict_to_pore_variables(state_dict: Mapping) -> Dict:
+    """The inverse of `pore_variables_to_state_dict`: a pore detector's
+    state_dict -> {"params": ..., "batch_stats": ...} nested by module, of
+    float32 numpy arrays in Flax's layouts (conv weights OIHW -> kernels
+    HWIO; a BatchNorm's weight / bias -> scale / bias, its running mean /
+    var -> batch_stats mean / var; `num_batches_tracked` dropped), as the
+    JAX package's `poredet.train.save_variables` takes them."""
+    bn = {k[:-len(".running_mean")] for k in state_dict
+          if k.endswith(".running_mean")}
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        # a copy: on the CPU .numpy() would share the live parameter
+        arr = np.array(t.detach().cpu().float().numpy(), copy=True)
+        if leaf in ("running_mean", "running_var"):
+            tree, leaf = out["batch_stats"], leaf[len("running_"):]
+        else:
+            tree = out["params"]
+            if leaf == "weight" and mod in bn:
+                leaf = "scale"
+            elif leaf == "weight":
+                leaf = "kernel"
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for m in mod.split("."):
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
     return out

@@ -272,3 +272,46 @@ class MatchClassifier(nn.Module):
         if extra_features is not None:
             pooled = torch.cat([pooled, extra_features], dim=-1)
         return self.fc(pooled)[..., 0]
+
+
+class BilinearAffinity(nn.Module):
+    """Bilinear affinity M = X A_s Y^T with A_s = (A + A^T) / 2 of a
+    learnable square A initialized at the identity (reference
+    src/model/pca_affinity.py:8-32, the PCA-GM affinity; a library layer,
+    not wired into NGMNet)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.A = nn.Parameter(torch.eye(dim))
+
+    def forward(self, X, Y, mask=None):
+        """X (..., N1, D), Y (..., N2, D) -> (..., N1, N2), times `mask`
+        where given."""
+        res = torch.einsum("...id,de,...je->...ij", X,
+                           (self.A + self.A.T) / 2, Y)
+        return res if mask is None else res * mask
+
+
+class DenseAssocGNNLayer(nn.Module):
+    """Dense-K association convolution (reference GNNLayer, gnn.py:11-87):
+    the row-normalized adjacency of K's nonzeros, times K, applied to a
+    two-layer node transform, plus a two-layer self transform; for problems
+    small enough to materialize K (`ops.assoc.assoc_dense`). A library
+    alternative to `AssocGNNLayer`."""
+
+    def __init__(self, in_features: int, out_features: int = 16):
+        super().__init__()
+        self.n_fc0 = nn.Linear(in_features, out_features)
+        self.n_fc1 = nn.Linear(out_features, out_features)
+        self.self0 = nn.Linear(in_features, out_features)
+        self.self1 = nn.Linear(out_features, out_features)
+
+    def forward(self, K, X, mask):
+        """K (..., M, M) dense affinity; X (..., M, C); mask (..., M) of the
+        valid association nodes -> (..., M, out_features)."""
+        m = mask.to(K.dtype)
+        A = (K > 0).to(K.dtype) * m[..., None, :] * m[..., :, None]
+        A = A / torch.clamp(A.sum(dim=-1, keepdim=True), min=1.0)
+        x1 = torch.relu(self.n_fc1(torch.relu(self.n_fc0(X))))
+        h = torch.relu(self.self1(torch.relu(self.self0(X))))
+        return ((A * K) @ x1 + h) * m[..., None]

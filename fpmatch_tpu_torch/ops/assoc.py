@@ -97,6 +97,28 @@ def assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
     return Y
 
 
+def assoc_matvec_fused(X: torch.Tensor, Kp: torch.Tensor, Ke: torch.Tensor,
+                       src1, dst1, src2, dst2,
+                       transpose: bool = False) -> torch.Tensor:
+    """The same product as one contraction over the graph-2 edges with
+    one-hot gather / scatter matrices (the JAX package's
+    `assoc_matvec_fused`, its large-problem path on the TPU), then the
+    segment sum over graph 1 (`index_add_`). Plain torch at any size: K3
+    (`kernels.assoc_bucket.assoc_matvec_large`) computes the same function
+    by hand on the card. X's dtype throughout, as the JAX op."""
+    B, n1, n2, C = X.shape
+    out1, in1, out2, in2 = _roles(src1, dst1, src2, dst2, transpose)
+    e1 = Ke.shape[1]
+    rows = X.reshape(B * n1, n2, C).index_select(
+        0, _batch_offsets(in1, n1)).reshape(B, e1, n2, C)
+    G2 = torch.nn.functional.one_hot(in2.long(), n2).to(X.dtype)
+    S2 = torch.nn.functional.one_hot(out2.long(), n2).to(X.dtype)
+    t = torch.einsum("benc,bfn,bef,bfm->bemc", rows, G2, Ke.to(X.dtype), S2)
+    Y = torch.zeros((B * n1, n2, C), dtype=X.dtype, device=X.device)
+    Y.index_add_(0, _batch_offsets(out1, n1), t.reshape(B * e1, n2, C))
+    return Y.reshape(B, n1, n2, C) + Kp[..., None] * X
+
+
 # association-edge count (per sample) from which the chunked form is used
 CHUNKED_NNZ_THRESHOLD = 1_000_000
 CHUNK_E1 = 256
@@ -302,3 +324,29 @@ def assoc_tri_degree(t1_mask, t2_mask, tri1, tri2, n1: int, n2: int
         term = d1[:, :, None] * d2[:, None, :]
         deg = term if deg is None else deg + term
     return deg
+
+
+def assoc_dense(Kp: torch.Tensor, Ke: torch.Tensor, src1, dst1, src2, dst2,
+                n1: int, n2: int) -> torch.Tensor:
+    """K materialized densely (test / reference path only; the reference's
+    `construct_aff_mat`), per sample: (B, n1*n2, n1*n2) with the column-major
+    vec indexing (i2*n1 + i1) and association edges flattened e1-outer,
+    e2-inner; duplicate entries add up (`index_put_(accumulate=True)`).
+    Kp (B, n1, n2), Ke (B, E1, E2), edge lists (B, E)."""
+    B = Ke.shape[0]
+    m = n1 * n2
+    row = (src2[:, None, :].long() * n1 + src1[:, :, None].long())
+    col = (dst2[:, None, :].long() * n1 + dst1[:, :, None].long())
+    b = torch.arange(B, device=Ke.device)[:, None, None].expand_as(row)
+    K = torch.zeros((B, m, m), dtype=Kp.dtype, device=Kp.device)
+    K.index_put_((b.reshape(-1), row.reshape(-1), col.reshape(-1)),
+                 Ke.reshape(-1).to(Kp.dtype), accumulate=True)
+    return K + torch.diag_embed(Kp.transpose(1, 2).reshape(B, m))
+
+
+def edge_incidence_gather(F: torch.Tensor, src, dst) -> torch.Tensor:
+    """[F G ; F H] edge features: the node features at both endpoints,
+    concatenated. F (B, N, D), src / dst (B, E) -> (B, E, 2D)."""
+    D = F.shape[-1]
+    at = lambda i: torch.gather(F, 1, i.long()[..., None].expand(-1, -1, D))
+    return torch.cat([at(src), at(dst)], dim=-1)

@@ -85,3 +85,29 @@ def sinkhorn(s: torch.Tensor, n1, n2, *, tau: float = 1.0, max_iter: int = 10,
     n2 = torch.as_tensor(n2, device=s.device).reshape(1)
     return sinkhorn_batch(s[None], n1, n2, tau=tau, max_iter=max_iter,
                           dummy_row=dummy_row)[0]
+
+
+def gumbel_sinkhorn(s: torch.Tensor, n1, n2, *, tau: float = 1.0,
+                    max_iter: int = 10, sample_num: int = 5,
+                    dummy_row: bool = True, u: torch.Tensor = None,
+                    generator: torch.Generator = None) -> torch.Tensor:
+    """Gumbel-Sinkhorn sampling (reference src/model/sinkhorn.py:172-235,
+    Mena et al. ICLR'18): i.i.d. Gumbel noise -log(-log(u)) added to the
+    scores, then the masked Sinkhorn per sample.
+
+    :param s: (S1, S2) scores of one pair; n1, n2 its valid counts
+    :param u: (sample_num, S1, S2) uniforms in [1e-20, 1); drawn from
+        `generator` (on s's device; None: torch's default) when not given
+        (the JAX package draws them from its PRNG key, which torch cannot
+        reproduce, so a caller that needs its samples passes its draws)
+    :return: (sample_num, S1, S2)
+    """
+    if u is None:
+        u = torch.rand((sample_num,) + tuple(s.shape), generator=generator,
+                       device=s.device, dtype=s.dtype)
+        u = 1e-20 + u * (1.0 - 1e-20)
+    g = -torch.log(-torch.log(u))
+    k = u.shape[0]
+    ones = torch.ones(k, dtype=torch.long, device=s.device)
+    return sinkhorn_batch(s[None] + g, ones * int(n1), ones * int(n2),
+                          tau=tau, max_iter=max_iter, dummy_row=dummy_row)

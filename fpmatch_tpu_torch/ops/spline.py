@@ -1,5 +1,5 @@
 """B-spline kernel message passing math (SplineCNN, Fey et al. CVPR'18),
-batch-native: dim=2, kernel_size=5, degree-1 open splines.
+batch-native: degree-1 open splines (the matcher's: dim=2, kernel_size=5).
 
 A pseudo-coordinate u in [0, 1] activates the two adjacent knots floor(u*m)
 and floor(u*m)+1 (m = kernel_size - 1) with hat weights (1-frac, frac); in
@@ -7,6 +7,8 @@ and floor(u*m)+1 (m = kernel_size - 1) with hat weights (1-frac, frac); in
 All K projections of the node features are computed once with one batched
 matmul, then each edge takes its 4 active taps as row gathers from the
 (N*K, C_out) projection table — the sparse basis is never densified.
+Pseudo-coordinates of other than 2 dimensions (no model path) take the
+dense basis `spline_basis` instead, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,29 +38,13 @@ def spline_basis(u: torch.Tensor, kernel_size: int) -> torch.Tensor:
     return basis
 
 
-def spline_conv(x: torch.Tensor, src, dst, edge_attr: torch.Tensor,
-                weight: torch.Tensor, root_weight: torch.Tensor,
-                bias: torch.Tensor, edge_mask: torch.Tensor,
-                node_mask: torch.Tensor, kernel_size: int = 5,
-                aggr: str = "max") -> torch.Tensor:
-    """One SplineConv layer on a batch of padded edge-list graphs.
-
-    out[i] = aggr_{e: dst[e]=i} sum_s B_s(u_e) * (x[src[e]] @ W_s)
-             + x[i] @ W_root + b
-
-    :param x: (G, N, C_in) node features of G graphs
-    :param src, dst: (G, E) integer edge endpoints (padded slots alias node 0)
-    :param edge_attr: (G, E, 2) pseudo-coordinates
-    :param weight: (K, C_in, C_out), K = kernel_size**2; root_weight
-        (C_in, C_out); bias (C_out,)
-    :param edge_mask: (G, E) bool; node_mask: (G, N) bool
-    """
+def _tap_messages(x, src, edge_attr, weight, edge_mask, kernel_size: int):
+    """2-D pseudo-coordinates: each edge's 4 active taps as row gathers from
+    the (G*N*K, C_out) table of the node features' projections on all K
+    kernels. Returns the (G, E, C_out) messages."""
     G, n, _ = x.shape
     E = src.shape[1]
     c_out = weight.shape[-1]
-    if edge_attr.shape[-1] != 2:
-        raise NotImplementedError("spline_conv: only 2-D pseudo-coordinates")
-    weight = weight.to(x.dtype)
     K = kernel_size ** 2
     m = kernel_size - 1
     p = torch.clamp(edge_attr, 0.0, 1.0) * m                   # (G, E, 2)
@@ -80,6 +66,42 @@ def spline_conv(x: torch.Tensor, src, dst, edge_attr: torch.Tensor,
             w_e = (wa * wb * emask).to(x.dtype)
             rows = table.index_select(0, (base + cell).reshape(-1))
             msg = msg + w_e[..., None] * rows.reshape(G, E, c_out)
+    return msg
+
+
+def spline_conv(x: torch.Tensor, src, dst, edge_attr: torch.Tensor,
+                weight: torch.Tensor, root_weight: torch.Tensor,
+                bias: torch.Tensor, edge_mask: torch.Tensor,
+                node_mask: torch.Tensor, kernel_size: int = 5,
+                aggr: str = "max") -> torch.Tensor:
+    """One SplineConv layer on a batch of padded edge-list graphs.
+
+    out[i] = aggr_{e: dst[e]=i} sum_s B_s(u_e) * (x[src[e]] @ W_s)
+             + x[i] @ W_root + b
+
+    :param x: (G, N, C_in) node features of G graphs
+    :param src, dst: (G, E) integer edge endpoints (padded slots alias node 0)
+    :param edge_attr: (G, E, D) pseudo-coordinates (D = 2: the 4 taps of
+        each edge gathered; other D: the dense basis contraction)
+    :param weight: (K, C_in, C_out), K = kernel_size**D; root_weight
+        (C_in, C_out); bias (C_out,)
+    :param edge_mask: (G, E) bool; node_mask: (G, N) bool
+    """
+    G, n, _ = x.shape
+    E = src.shape[1]
+    c_out = weight.shape[-1]
+    weight = weight.to(x.dtype)
+    if edge_attr.shape[-1] == 2:
+        msg = _tap_messages(x, src, edge_attr, weight, edge_mask,
+                            kernel_size)
+    else:
+        # other dimensions: the dense basis contraction (JAX's fallback)
+        D = edge_attr.shape[-1]
+        basis = (spline_basis(edge_attr.reshape(G * E, D), kernel_size)
+                 .reshape(G, E, -1) * edge_mask[..., None]).to(x.dtype)
+        xs = torch.gather(x, 1, src.long()[..., None].expand(
+            -1, -1, x.shape[-1]))
+        msg = torch.einsum("ges,gei,sio->geo", basis, xs, weight)
 
     seg = (dst.long() + torch.arange(G, device=x.device)[:, None] * n
            ).reshape(-1)
@@ -93,12 +115,12 @@ def spline_conv(x: torch.Tensor, src, dst, edge_attr: torch.Tensor,
                             include_self=True)
         agg = torch.where(agg <= NEG / 2, 0.0, agg)
     elif aggr in ("add", "mean"):
-        msg = msg * emask[..., None]
+        msg = msg * edge_mask[..., None].to(x.dtype)
         agg = torch.zeros((G * n, c_out), dtype=x.dtype, device=x.device)
         agg.index_add_(0, seg, msg.reshape(G * E, c_out))
         if aggr == "mean":
             deg = torch.zeros((G * n,), dtype=x.dtype, device=x.device)
-            deg.index_add_(0, seg, emask.reshape(-1))
+            deg.index_add_(0, seg, edge_mask.to(x.dtype).reshape(-1))
             agg = agg / torch.clamp(deg, min=1.0)[:, None]
     else:
         raise ValueError(f"unknown aggregation: {aggr}")

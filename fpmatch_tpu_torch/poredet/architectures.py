@@ -17,16 +17,30 @@ inference works. Input (B, 1, H, W) float in [0, 1], output (B, 1, H', W').
 
 Children carry the Flax module names (`LayerBlock_{i}.Conv_0`,
 `LayerBlock_{i}.BatchNorm_0`, the head `Conv_0`), so a Flax variable tree
-maps onto the state_dict by path (`convert.pore_variables_to_state_dict`).
-Inference only: BatchNorm reads its running statistics, dropout is off.
+maps onto the state_dict by path (`convert.pore_variables_to_state_dict`,
+and back with `convert.state_dict_to_pore_variables`).
+
+The mode is the module's (`model.train()` / `model.eval()`), where the JAX
+package passes `train=`. Eval: BatchNorm reads its running statistics and
+dropout is off. Train (patch training, `poredet.train`): BatchNorm has
+`flax.linen.BatchNorm(momentum=0.9)`'s semantics (`models.backbone.
+BatchNorm2d`: biased batch statistics normalize and move the running ones),
+and gabriel's `Dropout(0.2)` keeps an activation with probability 0.8,
+scaled by 1 / 0.8, drawn from the model's `dropout_generator` (a
+`torch.Generator` on the activations' device; None: torch's default one).
+`lecun_init_` draws the weights as Flax's default initialisers do.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-BN_EPS = 1e-5          # flax.linen.BatchNorm's default epsilon
+from ..models.backbone import BatchNorm2d
+
+DROPOUT = 0.2          # gabriel's dropout rate
 
 
 class LayerBlock(nn.Module):
@@ -35,10 +49,10 @@ class LayerBlock(nn.Module):
         super().__init__()
         self.kernel, self.max_pool = kernel, max_pool
         self.Conv_0 = nn.Conv2d(in_features, features, kernel, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm2d(features)
 
     def forward(self, x):
-        x = self.BatchNorm_0(F.relu(self.Conv_0(x)))
+        x = self.BatchNorm_0(F.relu(self.Conv_0(x)), self.training)
         if self.max_pool:
             x = F.max_pool2d(x, self.kernel, stride=1)
         return x
@@ -89,20 +103,26 @@ class ResPoreNet(nn.Module):
 
 
 class GabrielNet(nn.Module):
-    """Small FCN (gabriel.py): 3 pooled blocks, dropout (off at inference),
+    """Small FCN (gabriel.py): 3 pooled blocks, dropout (train mode only),
     a 5x5 head with bias, BatchNorm after the head."""
+
+    dropout_generator = None
 
     def __init__(self, features: int = 40):
         super().__init__()
         f = features
         self.n_blocks = _blocks(self, [1, f, 2 * f, 4 * f], max_pool=True)
         self.Conv_0 = nn.Conv2d(4 * f, 1, 5)
-        self.BatchNorm_0 = nn.BatchNorm2d(1, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm2d(1)
 
     def forward(self, x):
         for i in range(self.n_blocks):
             x = getattr(self, f"LayerBlock_{i}")(x)
-        return torch.sigmoid(self.BatchNorm_0(self.Conv_0(x)))
+        if self.training:
+            keep = torch.rand(x.shape, generator=self.dropout_generator,
+                              device=x.device) < 1.0 - DROPOUT
+            x = torch.where(keep, x / (1.0 - DROPOUT), 0.0)
+        return torch.sigmoid(self.BatchNorm_0(self.Conv_0(x), self.training))
 
 
 class SuNet(nn.Module):
@@ -151,6 +171,28 @@ def make_architecture(name: str, features: int = 40) -> nn.Module:
     cls = ResPoreNet if residual else PlainPoreNet
     return cls(features=features, num_layers=_RF_TO_LAYERS[rf],
                max_pool=max_pool).eval()
+
+
+@torch.no_grad()
+def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initialisers, drawn from `generator` (on the CPU; the
+    weights are then copied to the model's device): conv kernels LeCun
+    normal (a normal of std sqrt(1 / fan_in) / 0.8796 truncated at two of
+    its std, fan_in = in_channels * kh * kw), zero biases, BatchNorm scale 1
+    and bias 0 with running mean 0 and variance 1. Returns the model."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            w = torch.empty(m.weight.shape)
+            # the std of a standard normal truncated to [-2, 2]
+            std = math.sqrt(1.0 / m.weight[0].numel()) / .87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
 
 
 def receptive_field(name: str) -> int:

@@ -1,5 +1,12 @@
-"""Pore-detector weights on disk, full-image validation and the threshold
-grid search: the inference half of the JAX package's `poredet/train.py`.
+"""Pore-detector training: balanced patch classification, full-image
+validation and the threshold grid search (the JAX package's
+`poredet/train.py`; reference pore-detection/train.py:218-846).
+
+  * patch BCE training of any of the 18 architectures (`make_patch_bank`,
+    `train_pore_detector`: Adam, a numpy permutation per epoch, drop-last
+    batches, per-epoch validation on whole images, keep-best);
+  * the grid search over detection probability, then NMS IoU;
+  * the TEST I / TEST II final phases.
 
 Weights are read and written in that package's flat `.npz` layout (keys such
 as `params/LayerBlock_0/Conv_0/kernel`, `batch_stats/LayerBlock_0/
@@ -9,31 +16,148 @@ builds the architecture and converts the variables with
 `convert.pore_variables_to_state_dict`.
 
 The validation helpers take a model that carries its weights (the JAX
-package's take `model, variables`). Patch training (`make_patch_bank`,
-`train_pore_detector`) is not ported yet (ROADMAP.md, Queue A: training).
+package's take `model, variables`). A detector trained here is written by
+`save_variables` in that layout, so the JAX package's `load_variables`
+reads it too.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import time
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .evaluate import aggregate_scores, detection_scores
 from .inference import detect_pores_in_image
+from .patches import extract_balanced_patches
+
+# the centre output is clipped to [P_EPS, 1 - P_EPS] before the BCE
+P_EPS = 1e-6
 
 
-def _waits(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to fpmatch_tpu_torch yet (ROADMAP.md, "
-        f"Queue A: training)")
+def make_patch_bank(images: Sequence[np.ndarray],
+                    pore_sets: Sequence[np.ndarray], window: int,
+                    seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Balanced patches of every image, negatives drawn from one
+    `default_rng(seed)` stream across the images: ((N, window, window, 1)
+    float32 in [0, 1], (N,) float32 labels), the JAX package's arrays."""
+    rng = np.random.default_rng(seed)
+    xs, ys = [], []
+    for img, pores in zip(images, pore_sets):
+        x, y = extract_balanced_patches(img, pores, window=window, rng=rng)
+        xs.append(x)
+        ys.append(y)
+    return np.concatenate(xs), np.concatenate(ys)
 
 
-def make_patch_bank(*args, **kwargs):
-    raise _waits("pore-detector patch training (make_patch_bank)")
+def patch_loss(model, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
+    """Mean BCE of the centre output (the (1, 1) map of a window-sized
+    patch), clipped to [P_EPS, 1 - P_EPS]. xb (B, 1, w, w), yb (B,)."""
+    p = torch.clamp(model(xb)[:, 0, 0, 0], P_EPS, 1 - P_EPS)
+    return -torch.mean(yb * torch.log(p) + (1 - yb) * torch.log(1 - p))
 
 
-def train_pore_detector(*args, **kwargs):
-    raise _waits("pore-detector training (train_pore_detector)")
+def make_optimizer(model, lr: float = 1e-3) -> torch.optim.Adam:
+    """`optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 outside the square root,
+    no weight decay."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def train_step(model, opt, xb: torch.Tensor, yb: torch.Tensor
+               ) -> torch.Tensor:
+    """One Adam step of the patch loss in train mode (batch statistics
+    normalize and move the running ones); returns the loss (on the
+    device)."""
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    loss = patch_loss(model, xb, yb)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def train_pore_detector(arch: str, images, pore_sets, val_images,
+                        val_pore_sets, *, features: int = 40,
+                        epochs: int = 5, batch_size: int = 256,
+                        lr: float = 1e-3, seed: int = 0,
+                        probability: float = 0.65, nms_iou: float = 0.2,
+                        device="cuda", log_fn=print) -> Dict:
+    """Train one architecture on `device` (`cuda` without a GPU raises).
+
+    Weights are drawn by `architectures.lecun_init_` from a `torch.Generator`
+    seeded with `seed` (and gabriel's dropout from one seeded with
+    `seed + 1`); the patch bank and the per-epoch order of the patches come
+    from `default_rng(seed)` streams, as in the JAX package. Each epoch
+    takes the full batches of its permutation (the last, short one is
+    dropped), then validates on the whole `val_images`; the epoch with the
+    best F-score is kept.
+
+    :return: the best epoch's validation report with "variables" (nested
+        numpy, `save_variables`' input), "model" (the architecture with those
+        weights, eval mode, on `device`), "epoch", "n_patches", and per
+        epoch (all epochs) "losses", "val_f" and "step_ms" (host ms per
+        step, the epoch's steps ending in a wait for the device)
+    """
+    from .. import resolve_device
+    from ..convert import state_dict_to_pore_variables
+    from .architectures import lecun_init_, make_architecture, \
+        receptive_field
+
+    dev = resolve_device(device)
+    window = receptive_field(arch)
+    X, Y = make_patch_bank(images, pore_sets, window, seed)
+    log_fn(f"[poredet] {arch}: {len(X)} patches (window {window})")
+    model = make_architecture(arch, features=features)
+    lecun_init_(model, torch.Generator().manual_seed(seed)).to(dev)
+    if hasattr(model, "dropout_generator"):
+        model.dropout_generator = torch.Generator(dev).manual_seed(seed + 1)
+    opt = make_optimizer(model, lr)
+    Xd = torch.from_numpy(X).permute(0, 3, 1, 2).contiguous().to(dev)
+    Yd = torch.from_numpy(Y).to(dev)
+
+    rng = np.random.default_rng(seed)
+    best = {"f_score": -1.0}
+    curve = {"losses": [], "val_f": [], "step_ms": []}
+    for epoch in range(epochs):
+        order = rng.permutation(len(X))
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            idx = torch.from_numpy(order[i:i + batch_size]).to(dev)
+            losses.append(train_step(model, opt, Xd[idx], Yd[idx]))
+        # float() waits for the device
+        loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        curve["step_ms"].append(
+            (time.perf_counter() - t0) * 1e3 / max(len(losses), 1))
+        model.eval()
+        report = validate_full_images(model, val_images, val_pore_sets,
+                                      window=window, probability=probability,
+                                      nms_iou=nms_iou)
+        curve["losses"].append(loss)
+        curve["val_f"].append(report["f_score"])
+        log_fn(f"[poredet] {arch} epoch {epoch}: "
+               f"loss={loss:.4f} val_f={report['f_score']:.4f}")
+        if report["f_score"] > best["f_score"]:
+            best = {**report, "epoch": epoch, "variables":
+                    state_dict_to_pore_variables(model.state_dict())}
+    best["model"] = variables_to_model(arch, best["variables"], dev,
+                                       features=features)
+    return {**best, **curve, "n_patches": len(X)}
+
+
+def variables_to_model(arch: str, variables: Mapping, device="cuda",
+                       features: int = 40):
+    """`make_architecture(arch, features)` holding `variables` (nested
+    numpy, Flax layout), in eval mode on `device`."""
+    from .. import resolve_device
+    from ..convert import pore_variables_to_state_dict
+    from .architectures import make_architecture
+
+    model = make_architecture(arch, features=features)
+    model.load_state_dict(pore_variables_to_state_dict(variables))
+    return model.to(resolve_device(device)).eval()
 
 
 def save_variables(path, variables: Mapping) -> None:
@@ -52,15 +176,9 @@ def save_variables(path, variables: Mapping) -> None:
 
 def load_variables(path) -> Dict:
     """Read a flat detector `.npz` back into nested numpy variables."""
-    out: Dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            *mods, leaf = key.split("/")
-            node = out
-            for m in mods:
-                node = node.setdefault(m, {})
-            node[leaf] = z[key]
-    return out
+    from ..convert import read_flax_npz
+
+    return read_flax_npz(path)
 
 
 def load_detector(arch: str, path, device="cuda"):
@@ -68,20 +186,13 @@ def load_detector(arch: str, path, device="cuda"):
     in eval mode on `device` (`cuda` without a GPU raises). A Flax msgpack
     checkpoint cannot be read here (no flax): convert it to the `.npz`
     layout with the JAX package's `poredet.train.save_variables`."""
-    from .. import resolve_device
-    from ..convert import pore_variables_to_state_dict
-    from .architectures import make_architecture
-
-    dev = resolve_device(device)
     if not str(path).endswith(".npz"):
         raise ValueError(
             f"{path}: detector weights are read from the flat .npz layout "
             f"(e.g. results/poredet/net17nomax.npz); Flax msgpack checkpoints "
             f"need flax, which this package does not use — write them as "
             f".npz with the JAX package's poredet.train.save_variables")
-    model = make_architecture(arch)
-    model.load_state_dict(pore_variables_to_state_dict(load_variables(path)))
-    return model.to(dev).eval()
+    return variables_to_model(arch, load_variables(path), device)
 
 
 def validate_full_images(model, images, pore_sets, *, window, probability,

@@ -3,9 +3,15 @@
 saved) at `<dir>/<name>.opt.pt`, plus the `checkpoint.json` sidecar
 (`latest`, curriculum metadata) that the JAX package's
 `train/checkpoints.py` keeps. `warm_start` is its shape-tolerant load.
-Importing an orbax checkpoint is not ported yet (ROADMAP.md, Queue A:
-checkpoints import); weights cross over through
-`convert.from_flax_variables`.
+
+A matcher trained by the JAX package comes across without orbax: on the
+JAX side its orbax checkpoint is written out as a flat `.npz` with that
+package's `poredet.train.save_variables("ckpt/stage6_best.npz",
+train.checkpoints.restore_loose("ckpt", "stage6_best"))` (keys
+`params/...`, `batch_stats/...`, `step`), which `import_flax_npz`
+converts (`convert.from_flax_variables`). `restore_params` reads
+`<name>.npz` where `<name>.pt` is absent, so the CLIs' `--checkpoint-dir`
+takes such a directory as it is.
 """
 from __future__ import annotations
 
@@ -48,12 +54,34 @@ def save_checkpoint(ckpt_dir: str, name: str, model_or_state_dict,
     return path
 
 
-def restore_params(ckpt_dir: str, name: str) -> Dict:
-    """The state_dict saved as `ckpt_dir/name.pt`, on the CPU."""
+def import_flax_npz(path, cfg=None) -> Dict:
+    """The state_dict of the JAX package's variables in the flat `.npz` at
+    `path` (its `step` ignored): checked against `NGMNet(cfg)` by
+    `convert.from_flax_variables` where `cfg` is given, else converted by
+    name only (no `num_batches_tracked`), for the shape-tolerant
+    `warm_start`."""
+    from ..convert import (flax_tree_to_state_dict, from_flax_variables,
+                           read_flax_npz)
+
+    variables = read_flax_npz(path)
+    if cfg is not None:
+        return from_flax_variables(variables, cfg)
+    return flax_tree_to_state_dict(variables["params"],
+                                   variables.get("batch_stats"))
+
+
+def restore_params(ckpt_dir: str, name: str, cfg=None) -> Dict:
+    """The state_dict saved as `ckpt_dir/name.pt`, on the CPU; where that
+    file is absent, the JAX package's variables in `ckpt_dir/name.npz`
+    (`import_flax_npz`, checked against `NGMNet(cfg)` when `cfg` is
+    given)."""
     import torch
 
-    return torch.load(_path(ckpt_dir, name), map_location="cpu",
-                      weights_only=True)
+    path = _path(ckpt_dir, name)
+    npz = path[:-len(".pt")] + ".npz"
+    if not os.path.exists(path) and os.path.exists(npz):
+        return import_flax_npz(npz, cfg)
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def restore_state(ckpt_dir: str, name: str, state) -> None:

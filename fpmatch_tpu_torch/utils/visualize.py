@@ -1,9 +1,13 @@
-"""Match visualization: the part of the JAX package's `utils/visualize.py`
-that evaluation calls (`visualize_match` and its helpers; `cv2` is imported
-inside the functions that draw). The heatmap and graph drawings are not
-ported yet (ROADMAP.md, Queue A: remaining CLIs / utils).
+"""Visualization (the JAX package's `utils/visualize.py`; reference
+utils/visualize.py + utils/matching.py): de-normalized images, keypoint
+overlays, match lines between the views of a pair (`cv2`), similarity
+heatmaps and graph drawings (matplotlib, `networkx` for the spring layout
+where it is installed). Host numpy; each drawing library is imported inside
+the function that needs it.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -58,3 +62,85 @@ def visualize_match(images: np.ndarray, points: np.ndarray, ns: np.ndarray,
     cv2.putText(canvas, f"{tag}  p={prob:.3f}  matches={len(rows)}",
                 (8, 18), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 255, 255), 1)
     cv2.imwrite(path, cv2.cvtColor(canvas, cv2.COLOR_RGB2BGR))
+
+
+def similarity_heatmap(sim: np.ndarray, n1: int, n2: int,
+                       path: Optional[str] = None):
+    """Matplotlib heatmap of the valid (n1, n2) block of a similarity
+    matrix: written to `path` (returns None), else the figure."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(5, 5))
+    im = ax.imshow(sim[:n1, :n2], aspect="auto", cmap="viridis")
+    fig.colorbar(im)
+    if path:
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        return None
+    return fig
+
+
+def draw_graph_structure(points: np.ndarray, src: np.ndarray,
+                         dst: np.ndarray, n: int, n_edges: int,
+                         path: Optional[str] = None, layout: str = "spatial",
+                         node_color: str = "skyblue",
+                         edge_color: str = "gray"):
+    """A fingerprint graph's nodes and edges (the reference's
+    visualize_pyg_data, utils/visualize.py:46-135). "spatial" puts the
+    nodes at their pore coordinates; "spring" is networkx's
+    spring_layout(seed=42) where networkx is installed, else spatial.
+
+    :param points: (N, 2) padded keypoints; src, dst (E,) padded edges
+    :param n, n_edges: the valid counts
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.collections import LineCollection
+
+    pos = np.asarray(points[:n], np.float64)
+    s = np.asarray(src[:n_edges])
+    d = np.asarray(dst[:n_edges])
+    if layout == "spring":
+        try:
+            import networkx as nx
+        except ImportError:
+            nx = None
+        if nx is not None:
+            G = nx.Graph()
+            G.add_nodes_from(range(n))
+            G.add_edges_from(zip(s.tolist(), d.tolist()))
+            p = nx.spring_layout(G, seed=42)
+            pos = np.asarray([p[i] for i in range(n)])
+
+    fig, ax = plt.subplots(figsize=(8, 8))
+    ax.add_collection(LineCollection(np.stack([pos[s], pos[d]], axis=1),
+                                     colors=edge_color, alpha=0.7,
+                                     linewidths=0.8))
+    ax.scatter(pos[:, 0], pos[:, 1], s=50, c=node_color, alpha=0.7,
+               zorder=2)
+    ax.set_title("Graph Visualization")
+    ax.set_aspect("equal")
+    ax.invert_yaxis()                  # image coordinates
+    ax.axis("off")
+    if path:
+        fig.savefig(path, bbox_inches="tight", pad_inches=0, dpi=120)
+        plt.close(fig)
+        return None
+    return fig
+
+
+def draw_graph_batch(points: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                     ns: np.ndarray, n_edges: np.ndarray, prefix: str,
+                     layout: str = "spatial"):
+    """One PNG per graph of a padded batch, `{prefix}_{i}.png` (the
+    reference's visualize_pyg_batch); returns the paths."""
+    paths = []
+    for i in range(len(ns)):
+        p = f"{prefix}_{i}.png"
+        draw_graph_structure(points[i], src[i], dst[i], int(ns[i]),
+                             int(n_edges[i]), path=p, layout=layout)
+        paths.append(p)
+    return paths

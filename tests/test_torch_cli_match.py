@@ -474,7 +474,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "'train.losses', 'train.step', 'utils.visualize', 'native', "
         "'ops.hungarian', 'poredet.architectures', 'poredet.convert', "
         "'poredet.dpf', 'poredet.evaluate', 'poredet.inference', "
-        "'poredet.patches', 'poredet.train', 'cli.detect_pores']\n"
+        "'poredet.patches', 'poredet.train', 'cli.detect_pores', "
+        "'ops.qap', 'models.gcn', 'core.graph', 'utils.profiling', "
+        "'cli.verify_setup', 'cli.split_dataset', 'cli.combine_dataset', "
+        "'cli.preview_augmentations', 'scripts.train_poredet']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n")

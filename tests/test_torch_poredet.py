@@ -9,8 +9,9 @@ on the CPU against the JAX package's, on the same numpy inputs:
   * both DPF detectors on a generator impression: identical coordinates;
   * full-image validation, the threshold grid search and the final test
     phases: equal scores;
-  * the weight files, the reference state dict import, the patch helpers and
-    `cli.detect_pores` (the same .txt files as the JAX CLI).
+  * the weight files, the reference state dict import, the patch helpers,
+    the patch bank and `cli.detect_pores` (the same .txt files as the JAX
+    CLI).
 """
 import filecmp
 from pathlib import Path
@@ -198,6 +199,9 @@ def test_reference_state_dict_loads_into_plain_net(tmp_path):
 
 
 def test_patch_helpers_and_training_that_waits():
+    """The patch helpers, and the patch bank of the training that no longer
+    waits: the same arrays as the JAX package's, one default_rng(seed)
+    stream across the images."""
     img, pores = j_generator.render_fingerprint(5, size=(120, 100),
                                                 n_pores=30)
     for soft in (False, True):
@@ -209,9 +213,14 @@ def test_patch_helpers_and_training_that_waits():
     got = t_patches.extract_balanced_patches(
         img, pores, window=17, rng=np.random.default_rng(0))
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
-    for fn in (tt.make_patch_bank, tt.train_pore_detector):
-        with pytest.raises(NotImplementedError, match="Queue A: training"):
-            fn([img], [pores], 17)
+    img2, pores2 = j_generator.render_fingerprint(6, size=(100, 120),
+                                                  n_pores=25)
+    for window, seed in ((17, 0), (13, 4)):
+        want = jt.make_patch_bank([img, img2], [pores, pores2], window, seed)
+        got = tt.make_patch_bank([img, img2], [pores, pores2], window, seed)
+        assert got[0].shape == want[0].shape and got[0].shape[1] == window
+        assert all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(got, want))
 
 
 # ----------------------------------------------------------------------- DPF
