@@ -95,7 +95,7 @@ Phases (each prints its own lines; any failure exits non-zero):
               deterministic algorithms (reported)
  17. train    python -m fpmatch_tpu_torch.cli.train's `main` at full width
               (n_max 64, e_max 384, B=8) through stages 1-6 on a synthetic
-              split written here, 4 steps a stage, twice; per stage step ms,
+              split written here, 4 steps a stage; per stage step ms,
               pairs/s, losses, K2 forward / backward and K6 launches (K6 and
               the K2 backward in stages 1, 3, 5 only); the checkpoints load
               back; then `--smoke` once
@@ -112,7 +112,7 @@ Phases (each prints its own lines; any failure exits non-zero):
               features), wall ms beside the f32 ones, one request of each
               route against the CPU in bf16, cli.match.main --bf16 once
  20. evaluate --bf16 over phase 7's split (K2) and phase 9's (K3), pairs/s
-              beside the f32 runs
+              beside the f32 runs (thread workers)
  21. train    one --bf16 train step of stage 1 against the CPU (loss terms,
               per-partition gradient cosines, finite gradients; beside
               it the f32 step of the same weights and picks as a yardstick:
@@ -174,6 +174,25 @@ Phases (each prints its own lines; any failure exits non-zero):
               assoc_matvec_fused against K3; Gconv, ChannelIndependentConv,
               DenseAssocGNNLayer and BilinearAffinity against the CPU (1e-5
               of the range); cli.verify_setup (exit 0)
+ 30. profile  scripts.profile_train_step at its defaults (Config() at full
+              width, B=8, n_max 64, stage 3: K2 forward, K2 dX, K6): eval
+              forward, train forward, forward + backward, the optimizer
+              alone, the full step and the step under six ablations
+              (`scripts.profile_train_step.ablations`); per variant
+              median host ms of 10 steps, pairs/s, and over 3 profiled
+              steps busy ms, idle share, launches; the profiler's K1 / K2 /
+              K3 / K6 launches equal to the wrappers'
+ 31. halo     scripts.bench_edge_partition (n = 512, C = 16): one device
+              (K3) and p = 2 / 4 / 8 ranks (emulated on one card) within
+              1e-5 of its range; halo rows, bytes, fraction, overlap proxy
+ 32. scaling  scripts.bench_cli_mesh_scaling: cli.train --n-devices 1 in a
+              child process (2 / 4 where as many cards are visible)
+ 33. reports  cli.evaluate's scores.csv on phase 17's checkpoint over a
+              split with sibling fingers, scripts.hard_impostor_report on
+              it; scripts.matching_recall_report (K2; launches against the
+              profiler's), its first batch card against CPU (TF32 off)
+ 34. caps     K1's slot-cap sweep (scripts/time_univ_v3.py, caps 8 / 16 /
+              24, n = 600, C = 16, bf16 X) against the plain version
 
 Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
 X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
@@ -245,7 +264,14 @@ from fpmatch_tpu_torch.poredet.dpf import detect_pores_dpf, detect_pores_lemes
 from fpmatch_tpu_torch.poredet.inference import (candidates,
                                                  detect_pores_in_image)
 from fpmatch_tpu_torch.poredet.train import load_detector, validate_full_images
-from fpmatch_tpu_torch.scripts import train_poredet, tune_univ
+from fpmatch_tpu_torch.scripts import (bench_cli_mesh_scaling,
+                                       bench_edge_partition,
+                                       hard_impostor_report,
+                                       matching_recall_report,
+                                       time_univ_v3, train_poredet,
+                                       tune_univ)
+from fpmatch_tpu_torch.scripts import _measure
+from fpmatch_tpu_torch.scripts import profile_train_step as step_profiler
 from fpmatch_tpu_torch.train.checkpoints import restore_params
 from fpmatch_tpu_torch.train.state import create_state, partition_of
 from fpmatch_tpu_torch.train.step import (make_eval_step,
@@ -301,8 +327,7 @@ def sh(cmd):
 
 # ------------------------------------------------------------------ 1 device
 def phase_device():
-    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
+    card = _measure.card().splitlines()[0]
     nvcc = sh([_build.find_nvcc(), "--version"]).splitlines()[-2:]
     say(f"[1 device] {card}")
     say(f"[1 device] python {sys.version.split()[0]} torch "
@@ -2678,22 +2703,19 @@ def phase_train(tmp):
     """`cli.train` through all six stages at full width (n_max 64, e_max
     384, batches of 8, ResNet-18) on a synthetic split written here (60
     pores), 32 training pairs per epoch, one epoch, one pass: 4 steps a
-    stage, thread workers. Run twice (the second without first-use costs);
-    the checkpoints of the first run load back; then `--smoke` once."""
+    stage, thread workers (step times without first-use costs are phase
+    30's and 32's); the checkpoints load back; then `--smoke` once."""
     root = f"{tmp}/train/Synthetic"
     t = time.time()
     generate_synthetic_dataset(root, fingers_per_split=(16, 6, 4),
                                n_pores=60, seed=SEED, size=(320, 280))
     say(f"[17 train] synthetic split (16 / 6 / 4 fingers, 60 pores) "
         f"written in {time.time() - t:.1f} s")
-    runs = []
-    for i in (1, 2):
-        ckpt = f"{tmp}/train/ckpt{i}"
-        argv = ["--data-root", root, "--stages", "1,2,3,4,5,6", "--epochs",
-                "1", "--passes", "1", "--length", "32", "--thread-workers",
-                "--checkpoint-dir", ckpt, "--test-length", "16", "--seed",
-                str(SEED)]
-        runs.append(run_cli_train(f"17 train run {i}", argv))
+    argv = ["--data-root", root, "--stages", "1,2,3,4,5,6", "--epochs", "1",
+            "--passes", "1", "--length", "32", "--thread-workers",
+            "--checkpoint-dir", f"{tmp}/train/ckpt1", "--test-length", "16",
+            "--seed", str(SEED)]
+    runs = [run_cli_train("17 train run 1", argv)]
     # the checkpoints load back into a model of the same config
     cfg = cli_train_config(8)
     for name in ("stage1_best", "stage6_last"):
@@ -2863,12 +2885,13 @@ def phase_evaluate_bf16(pd32, root_large, index_dir, res7, res9):
     """Phase 20: `evaluate --bf16` (`cli.evaluate`'s config with the flag,
     seed-0 weights) over phase 7's 70-pair split in batches of 8 at n_max 64
     (K2 on bf16 features) and phase 9's 5 pairs in batches of 2 at n_max
-    256 (K3), each with its f32 phase's loader (spawned workers / threads);
+    256 (K3), each with thread workers (phase 7 drives the spawned
+    workers, whose start-up took some 40 s of the first batch here too);
     pairs/s after the first batch beside the f32 runs of phases 7 and 9."""
     out = {}
     for tag, shape, kernel, res32, workers, processes in (
             ("20 evaluate bf16", (8, 64, 384), "assoc_bucket", res7, 4,
-             True),
+             False),
             ("20 evaluate bf16 large", (2, 256, 1536), "assoc_large", res9,
              2, False)):
         cfg = eval_config(*shape, "--bf16")
@@ -3174,50 +3197,20 @@ def phase_parent_timing(parent):
 # ------------------------------------- 22-26 the matcher's other options
 OPTION_FLAGS = ("--hyperedge", "--cls-k-features")
 # the CUDA kernels of the main paths, by the name torch.profiler gives them
-KERNEL_NAMES = {"assoc_univ_v3": "assoc_univ_v3_kernel",
-                "assoc_bucket": "assoc_bucket_kernel",
-                "assoc_large": "assoc_large_kernel",
-                "assoc_grad": "assoc_grad_kernel"}
+KERNEL_NAMES = _measure.KERNEL_NAMES
 
 
-def profiler_launches(tag, fn, warmup=False):
-    """One more call of `fn` under torch.profiler: the launches of K1 / K2 /
-    K3 / K6 the profiler sees on the device, which must equal the wrappers'
-    counts of the same call (neither is kept in the main path's counts).
-    `warmup`: a first call of `fn` in a warm-up step of the profiler's
-    schedule, not counted, before the counted one (without it the profiler
-    once saw 16 of a QAP solve's 20 K2 launches, the first of a short call
-    after the profiler started)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+def profiler_launches(tag, fn):
+    """One more call of `fn` under torch.profiler
+    (`scripts._measure.profile_window`): the launches of K1 / K2 / K3 / K6
+    the profiler sees on the device, which must equal the wrappers' counts
+    of the same call (neither is kept in the main path's counts)."""
     saved = read_counts()
-    reset_counts()
-    torch.cuda.synchronize()
-    if warmup:
-        windows = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: windows.append(
-                         p.key_averages())) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            reset_counts()
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-        evs = windows[-1]
-    else:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = prof.key_averages()
-    counted = read_counts()
+    row = _measure.profiled(fn, DEV, 1)
     restore_counts(saved)
-    seen = {k: sum(e.count for e in evs if name in e.key)
-            for k, name in KERNEL_NAMES.items()}
-    wrappers = {k: counted[k] for k in KERNEL_NAMES}
-    say(f"[{tag}] torch.profiler's kernel launches of one call: {seen}")
+    seen, wrappers = row["profiler_launches"], row["wrapper_launches"]
+    say(f"[{tag}] torch.profiler's kernel launches of one call: {seen}"
+        + (f" ({row['windows']} windows)" if row["windows"] > 1 else ""))
     if seen != wrappers:
         fail(f"{tag}: the profiler saw {seen}, the wrappers counted "
              f"{wrappers}")
@@ -4081,8 +4074,7 @@ def qap_case(n, e_max, kernel, iters=20):
     tag = f"29 qap n={n}"
     expect_launches(tag, launches, **{kernel: iters})
     seen = profiler_launches(tag, lambda: qap_power_sinkhorn(*card, n, n,
-                                                             **kw),
-                             warmup=True)
+                                                             **kw))
     # a solve's wall time after those two (host clock, synchronised;
     # median of 5), its launches not counted
     saved = read_counts()
@@ -4194,6 +4186,239 @@ def phase_qap_layers(data_root):
     return out
 
 
+# ----------------------------------------------- 30-34 the port's tools
+TOOL_KERNELS = tuple(KERNEL_NAMES)
+# phase 30's timed steps a variant (the tool's default is 10): a step is
+# host-bound and its host median moves by a quarter between variants, so
+# the ablations are read by the profiled step's busy ms and launches
+STEP_PROFILER_STEPS = 5
+
+
+def tool_counts(counts):
+    return {k: counts[k] for k in TOOL_KERNELS}
+
+
+def check_self_profiled(tag, launches):
+    """A tool's calls under torch.profiler: their K1 / K2 / K3 / K6
+    launches by kernel name equal to the wrappers' counts of the same
+    calls."""
+    if launches["profiler"] != tool_counts(launches["wrappers"]):
+        fail(f"{tag}: the profiler saw {launches['profiler']}, the "
+             f"wrappers counted {launches['wrappers']}")
+
+
+def check_device_events():
+    """`scripts._measure.device_events` (the profiler's own records, which
+    the tools and `profiler_launches` read) against torch.profiler's
+    `key_averages()` on one window of 2,000 elementwise launches: the same
+    launches and device ms. Returns both readings' host seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 16, device=DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2000):
+            x.mul_(1.0)
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    raw = _measure.device_events(prof)
+    raw_s = time.perf_counter() - t
+    t = time.perf_counter()
+    evs = [e for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.device_time_total > 0
+           and not e.is_user_annotation]
+    avg_s = time.perf_counter() - t
+    got = (sum(c for c, _ in raw.values()), sum(m for _, m in raw.values()))
+    want = (sum(e.count for e in evs),
+            sum(e.device_time_total for e in evs) / 1e3)
+    say(f"[30 profiler records] launches, device ms: {got} from the "
+        f"records in {raw_s:.3f} s, {want} from key_averages() in "
+        f"{avg_s:.3f} s")
+    if got[0] != want[0] or abs(got[1] - want[1]) > 1e-6 * want[1]:
+        fail(f"30: the profiler's records {got} against key_averages() "
+             f"{want}")
+    return {"records_s": raw_s, "key_averages_s": avg_s,
+            "launches": got[0], "device_ms": got[1]}
+
+
+def phase_profile_train_step_tool():
+    """30: scripts.profile_train_step at its shapes (Config() at full
+    width, B=8, n_max 64, stage 3; `STEP_PROFILER_STEPS` timed steps a
+    variant after two warm-up steps, one under torch.profiler): the step
+    split and the ablations. Every variant's profiled launches of K1 / K2 / K3 / K6 equal
+    to the wrappers'; K2 in every variant but the optimizer's, K6 where a
+    backward runs."""
+    t = time.time()
+    records = check_device_events()
+    reset_counts()
+    out = step_profiler.run("cuda", steps=STEP_PROFILER_STEPS,
+                            profile_steps=1)
+    launches = read_counts()
+    out["profiler_records"] = records
+    for name, row in out["variants"].items():
+        check_self_profiled(f"30 {name}", {
+            "wrappers": row["wrapper_launches"],
+            "profiler": row["profiler_launches"]})
+        w = row["wrapper_launches"]
+        forward = name != "optimizer_step"
+        backward = forward and name not in ("forward_eval", "forward_train")
+        if (w["assoc_bucket"] > 0) != forward \
+                or (w["assoc_grad"] > 0) != backward \
+                or w["assoc_univ_v3"] or w["assoc_large"]:
+            fail(f"30 {name}: kernel launches {w}")
+        if not (np.isfinite(row["median_ms"]) and row["device_busy_ms"] > 0
+                and 0 <= row["idle_share"] <= 1):
+            fail(f"30 {name}: {row}")
+        say(f"[30 profile_train_step] {name}: {row['median_ms']:.1f} ms, "
+            f"{row['pairs_per_s']:.1f} pairs/s; busy "
+            f"{row['device_busy_ms'] / row['profiled_steps']:.1f} ms a "
+            f"step, idle {row['idle_share']:.3f}, "
+            f"{row['launches'] / row['profiled_steps']:.0f} launches a "
+            f"step; measured in {row['measure_s']:.1f} s")
+    say(f"[30 profile_train_step] split (ms): {json.dumps(out['split_ms'])}")
+    out["launches"] = launches
+    out["phase_s"] = time.time() - t
+    return out
+
+
+def phase_edge_partition_tool():
+    """31: scripts.bench_edge_partition at its defaults (n = 512, C = 16,
+    seed 0): one device (K3), p = 2 / 4 / 8 ranks (emulated in this process
+    on one card), each held to 1e-5 of the one-device result's range, every
+    timed call's launches against torch.profiler's."""
+    t = time.time()
+    reset_counts()
+    out = bench_edge_partition.run("cuda")
+    launches = read_counts()
+    check_self_profiled("31 single", out["single_device_launches"])
+    single = out["single_device_launches"]
+    if tool_counts(single["wrappers"]) != {
+            **{k: 0 for k in TOOL_KERNELS}, "assoc_large": single["calls"]}:
+        fail(f"31: each one-device call must be one K3 launch: {single}")
+    for p in bench_edge_partition.SHARDS:
+        row = out[f"p{p}"]
+        check_self_profiled(f"31 p={p}", row["launches"])
+        if not (row["max_rel_err_vs_single"] <= 1e-5
+                and row["launches"]["wrappers"]["assoc_large"]
+                == 2 * p * row["launches"]["calls"]):
+            fail(f"31 p={p}: {row}")
+        say(f"[31 edge partition] p={p} ({row['mode']}): "
+            f"{row['sharded_ms']:.3f} ms against {out['single_device_ms']:.3f}"
+            f" ms on one device; halo {row['halo_rows_per_layer']} rows, "
+            f"{row['halo_bytes_per_layer']} bytes a layer, fraction "
+            f"{row['halo_fraction_vs_replication']:.4f}; error "
+            f"{row['max_rel_err_vs_single']:.2e}")
+    out["launches"] = launches
+    out["phase_s"] = time.time() - t
+    return out
+
+
+def phase_mesh_scaling_tool():
+    """32: scripts.bench_cli_mesh_scaling: `python -m
+    fpmatch_tpu_torch.cli.train --n-devices N` in a child process on the
+    reference script's dataset and flags; N = 1 here (N = 2, 4 where as many
+    cards are visible). Its kernels run in the child process, where this
+    process's counters and profiler do not reach."""
+    t = time.time()
+    out = bench_cli_mesh_scaling.run("cuda")
+    one = out["runs"].get("1")
+    if not one or not (one["pairs_per_s"] > 0
+                       and np.isfinite(one["ms_per_step"])):
+        fail(f"32: {out}")
+    say(f"[32 mesh scaling] {json.dumps(out['runs'])}; left out: "
+        f"{json.dumps(out['left_out'])}")
+    out["phase_s"] = time.time() - t
+    return out
+
+
+def phase_reports_tools(tmp):
+    """33: the reports on phase 17's checkpoint (`ckpt1`, latest
+    stage6_last) over a test split with sibling fingers written here:
+    cli.evaluate writes scores.csv, scripts.hard_impostor_report reads it;
+    scripts.matching_recall_report on the card (K2; its launches against
+    torch.profiler's), and its first batch on the card (TF32 off) against
+    the port's CPU run: the card's mean recall and precision within 0.02
+    of the CPU's (a greedy pick may flip on a rounding tie)."""
+    t = time.time()
+    root = f"{tmp}/reports/Synthetic"
+    generate_synthetic_dataset(root, fingers_per_split=(1, 4, 1),
+                               n_pores=60, seed=SEED, size=(320, 280),
+                               sessions=2, stances=1, sibling_fraction=0.5)
+    ckpt = f"{tmp}/train/ckpt1"
+    cli_evaluate.main(["--data-root", root, "--checkpoint-dir", ckpt,
+                       "--output-dir", f"{tmp}/reports/eval",
+                       "--thread-workers", "--num-viz", "0"])
+    hard = hard_impostor_report.report(
+        f"{tmp}/reports/eval/scores.csv",
+        siblings_json=f"{root}/siblings.json")
+    say(f"[33 hard impostors] {json.dumps(hard)}")
+    if not (hard["n_sibling_impostors"] > 0
+            and np.isfinite(hard["sibling_eer"])):
+        fail(f"33: hard-impostor report {hard}")
+    argv = ["--data-root", root, "--checkpoint-dir", ckpt, "--node-taps",
+            "layer3", "--thread-workers"]
+    # the report's one run, under torch.profiler (a window retaken after a
+    # dropped record runs it again; the last run's report is kept)
+    reps = []
+    reset_counts()
+    prof = _measure.profiled(
+        lambda: reps.append(matching_recall_report.main(argv)), DEV, 1)
+    launches = read_counts()
+    rec = reps[-1]
+    check_self_profiled("33 matching recall", {
+        "wrappers": prof["wrapper_launches"],
+        "profiler": prof["profiler_launches"]})
+    if launches["assoc_bucket"] <= 0 or any(
+            v for k, v in tool_counts(launches).items()
+            if k != "assoc_bucket"):
+        fail(f"33: matching recall launches {launches}")
+    with tf32_off():
+        card1 = matching_recall_report.main(argv + ["--limit", "1"])
+        cpu1 = matching_recall_report.main(argv + ["--limit", "1",
+                                                   "--device", "cpu"])
+    diff = {k: abs(card1[k] - cpu1[k]) for k in (
+        "matching_recall", "matching_precision")}
+    same = float(np.mean([a == b for a, b in zip(
+        card1["per_pair"]["recall"], cpu1["per_pair"]["recall"])]))
+    summary = {k: v for k, v in rec.items() if k != "per_pair"}
+    say(f"[33 matching recall] {json.dumps(summary)}")
+    say(f"[33 matching recall] first batch, card against CPU (TF32 off): "
+        f"{json.dumps(diff)}; pairs with the same recall {same:.3f}")
+    if not all(v <= 0.02 for v in diff.values()):
+        fail(f"33: card and CPU differ: {diff}")
+    out = {"hard_impostors": hard, "matching_recall": rec,
+           "card_vs_cpu_first_batch": {"diff": diff, "same_recall": same},
+           "launches": launches, "phase_s": time.time() - t}
+    return out
+
+
+def phase_cap_sweep_tool(flush):
+    """34: K1's slot-cap sweep (scripts/time_univ_v3.py's `sweep_caps`) at
+    caps 8, 16, 24 on its own inputs (n = 600, C = 16, bf16 X): each row
+    held to its plain version, one call of each under torch.profiler."""
+    t = time.time()
+    reset_counts()
+    rows = time_univ_v3.sweep_caps([8, 16, 24], DEV, 20, flush)
+    launches = read_counts()
+    for r in rows:
+        check_self_profiled(f"34 cap {r['cap']}", r["launches"])
+        say(f"[34 cap sweep] " + json.dumps(r))
+    return {"rows": rows, "launches": launches, "phase_s": time.time() - t}
+
+
+def phase_tools(tmp):
+    """30-34; returns their JSON."""
+    t = time.time()
+    out = {"profile_train_step": phase_profile_train_step_tool(),
+           "edge_partition": phase_edge_partition_tool(),
+           "mesh_scaling": phase_mesh_scaling_tool(),
+           "reports": phase_reports_tools(tmp),
+           "cap_sweep": phase_cap_sweep_tool(tune_univ.l2_flush(DEV))}
+    out["phase_s"] = time.time() - t
+    say(f"[30-34] the tools' phases took {out['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {v['phase_s']:.1f}" for k, v in out.items() if k != "phase_s"))
+    return out
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -4285,6 +4510,7 @@ def main():
         mesh27 = phase_mesh()
         poredet28 = phase_train_poredet(tmp)
         qap29 = phase_qap_layers(f"{tmp}/bucket")
+        tools = phase_tools(tmp)
     parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
                                                  + 1]).resolve())
               if "--parent" in sys.argv[1:] else None)
@@ -4431,6 +4657,20 @@ def main():
     ks[5]["launches_options"] = {
         "24_train_step": options["train_step"]["launches"]["assoc_grad"],
         "26_overfit": options["overfit"]["launches"]["assoc_grad"]}
+    # the port's tools (phases 30-34): K2 / K6 in the train-step profiler,
+    # K3 in the edge-partition timer, K2 in the matching-recall report, K1
+    # in the cap sweep
+    tl = {k: v["launches"] for k, v in tools.items() if k in (
+        "profile_train_step", "edge_partition", "reports", "cap_sweep")}
+    ks[0]["launches_tools"] = {"34_cap_sweep":
+                               tl["cap_sweep"]["assoc_univ_v3"]}
+    ks[1]["launches_tools"] = {
+        "30_profile_train_step": tl["profile_train_step"]["assoc_bucket"],
+        "33_matching_recall": tl["reports"]["assoc_bucket"]}
+    ks[2]["launches_tools"] = {"31_edge_partition":
+                               tl["edge_partition"]["assoc_large"]}
+    ks[5]["launches_tools"] = {"30_profile_train_step":
+                               tl["profile_train_step"]["assoc_grad"]}
     # the grouping prologue the bucket wrappers share, once per batch
     for k in kernels["kernels"][1:3]:
         k["plan_ms"] = plan_ms
@@ -4473,6 +4713,9 @@ def main():
     say(json.dumps({"poredet_train": poredet28, "qap_layers": qap29}))
     say(f"[28-29] the two phases took {poredet28['phase_s']:.1f} + "
         f"{qap29['phase_s']:.1f} s")
+    # the port's tools: the step split and ablations, the halo table, the
+    # scaling run, the reports, K1's cap sweep
+    say(json.dumps({"tools": tools}))
     say(card)
     say(f"[done] {time.time() - T0:.0f} s in all")
     say(json.dumps({"ok": True, "device": {

@@ -43,9 +43,15 @@ as their JAX counterparts:
             `cli.split_dataset`, `cli.combine_dataset`,
             `cli.preview_augmentations`)
   scripts/  the block-size sweep of the blocked UNIV kernel (`tune_univ`),
-            kernel timings, the pore detector's training
-            (`train_poredet`)
+            kernel timings (K1's with its slot-cap sweep), the pore
+            detector's training (`train_poredet`), the train-step profiler,
+            the edge-partition and mesh-scaling timers, the matching-recall
+            and hard-impostor reports, the fixture regeneration
   convert   Flax variable tree (as numpy) -> state_dict (matcher, detector)
+
+COVERAGE.md maps every public function and class of the JAX package, and
+every tool of its `scripts/`, to its counterpart here or to the reason it
+has none.
 
 Where the JAX package lifts single-pair functions with vmap, this package is
 batch-native: functions take (B, ...) tensors and per-sample counts. Entry

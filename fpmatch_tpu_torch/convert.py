@@ -9,7 +9,8 @@ The two models name their children alike, so the mapping is by path:
   BatchNorm `scale` / `bias`       -> `weight` / `bias`
   batch_stats `mean` / `var`       -> `running_mean` / `running_var`
   raw parameters (`conv{i}_weight`, `conv{i}_root`, `conv{i}_bias`,
-  `mix{1,2}_{weight,bias}`, `norm{1,2}_{scale,bias}`)  -> carried by name
+  `mix{1,2}_{weight,bias}`, `norm{1,2}_{scale,bias}`, AFA-I's
+  `weight_matrix`, `weight_matrix_block`)  -> carried by name
 
 `pore_variables_to_state_dict` does the same for the pore detector.
 

@@ -100,3 +100,13 @@ def permute_edges(src: np.ndarray, dst: np.ndarray, perm: np.ndarray
     d2 = row_to_col[dst]
     keep = (s2 >= 0) & (d2 >= 0)
     return s2[keep].astype(np.int32), d2[keep].astype(np.int32)
+
+
+def make_grids(start, stop, num) -> np.ndarray:
+    """Regular grid point set (reference build_graphs.py:122-141): along
+    each axis `num` cell centres between `start` and `stop`, all
+    combinations, (prod(num), len(num)) float32."""
+    axes = [np.linspace(b, e, n + 1)[1:] - (e - b) / (2 * n)
+            for b, e, n in zip(start, stop, num)]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    return np.stack([m.reshape(-1) for m in mesh], axis=1).astype(np.float32)

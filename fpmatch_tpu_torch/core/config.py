@@ -186,3 +186,16 @@ def default_stages() -> Tuple[StageConfig, ...]:
         StageConfig(name="stage6", train_main=False, train_k=False, train_cls=True,
                     loss_perm=False, loss_ks=False),
     )
+
+
+def alternative_stages() -> Tuple[StageConfig, ...]:
+    """The reference's alternative 3-phase driver (train_new.py): CNN +
+    graph matching first, AFA-U warm-up second, joint fine-tune third."""
+    return (
+        StageConfig(name="phase1_gm", train_main=True, train_k=False,
+                    train_cls=True, loss_ks=False, grad_clip=5.0),
+        StageConfig(name="phase2_afa", train_main=False, train_k=True,
+                    train_cls=False),
+        StageConfig(name="phase3_joint", train_main=True, train_k=True,
+                    train_cls=True, lr=5e-5, k_lr=5e-5, cls_lr=5e-5),
+    )

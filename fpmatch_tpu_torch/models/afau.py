@@ -8,6 +8,9 @@ embeddings are max-pooled over the valid nodes and fed to two small MLP heads
 whose averaged logit gives k / min(n1, n2). Attention softmax and
 instance-norm statistics are masked to valid nodes. Parameter names equal the
 Flax modules'.
+
+SimGNN's AFA-I parts (`TensorNetworkModule`, `DenseAttentionModule`) are
+here too, as in the JAX package; the matcher does not use them.
 """
 from __future__ import annotations
 
@@ -137,3 +140,60 @@ class AFAUEncoder(nn.Module):
             self.final_row_fc2(torch.relu(self.final_row_fc1(g_row)))
             + self.final_col_fc2(torch.relu(self.final_col_fc1(g_col))))
         return torch.sigmoid(k_logit[..., 0])
+
+
+def _glorot_uniform_(w: torch.Tensor) -> torch.Tensor:
+    """Flax's `glorot_uniform` (fan_in = shape[-2], fan_out = shape[-1],
+    each times the product of the leading axes)."""
+    rf = math.prod(w.shape[:-2])
+    fan = (w.shape[-2] + w.shape[-1]) * rf
+    bound = math.sqrt(6.0 / fan)
+    with torch.no_grad():
+        return w.uniform_(-bound, bound)
+
+
+class TensorNetworkModule(nn.Module):
+    """SimGNN tensor network: a similarity vector from two graph embeddings
+    (reference afau.py:303-347; AFA-I component)."""
+
+    def __init__(self, filters: int, tensor_neurons: int = 16):
+        super().__init__()
+        self.weight_matrix = nn.Parameter(_glorot_uniform_(
+            torch.empty(filters, filters, tensor_neurons)))
+        self.weight_matrix_block = nn.Parameter(_glorot_uniform_(
+            torch.empty(tensor_neurons, 2 * filters)))
+        self.bias = nn.Parameter(torch.zeros(tensor_neurons))
+
+    def forward(self, emb1, emb2):
+        """emb1 / emb2: (B, filters) graph-level embeddings ->
+        (B, tensor_neurons)."""
+        scoring = torch.einsum("bi,ijt,bj->bt", emb1, self.weight_matrix,
+                               emb2)
+        block = torch.cat([emb1, emb2], dim=-1) @ self.weight_matrix_block.T
+        return torch.relu(scoring + block + self.bias)
+
+
+class DenseAttentionModule(nn.Module):
+    """SimGNN dense attention pooling to a graph-level embedding
+    (reference afau.py:350-399)."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        self.weight_matrix = nn.Parameter(_glorot_uniform_(
+            torch.empty(filters, filters)))
+
+    def forward(self, x, mask=None):
+        """x: (B, N, filters); mask: (B, N) validity -> (B, filters). The
+        mean is over the valid nodes, divided by max(count, 1)."""
+        if mask is not None:
+            m = mask.to(x.dtype)
+            cnt = torch.clamp(m.sum(-1, keepdim=True), min=1.0)
+            mean = (x * m[..., None]).sum(1) / cnt
+        else:
+            mean = x.mean(1)
+        g = torch.tanh(mean @ self.weight_matrix)
+        koefs = torch.sigmoid(torch.einsum("bnf,bf->bn", x, g))
+        w = koefs[..., None] * x
+        if mask is not None:
+            w = w * m[..., None]
+        return w.sum(1)

@@ -20,8 +20,9 @@ the ReLUs, the residual sums, the max-pool and the three outputs are f32.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -171,3 +172,41 @@ class ResNet18Backbone(nn.Module):
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         return (tuple(nhwc(taps[t]) for t in self.node_taps), nhwc(edges),
                 global_feat)
+
+
+def load_torch_resnet18(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """A torchvision-layout ResNet-18 `state_dict` (`conv1.weight`,
+    `bn1.*`, `layerX.Y.{conv,bn}{1,2}.*`, `layerX.Y.downsample.{0,1}.*`;
+    the classifier `fc.*` is dropped) -> a `state_dict` of
+    `ResNet18Backbone` at the default widths (`layerX_Y.downsample_conv` /
+    `downsample_bn`), the counterpart of the JAX package's converter into
+    Flax trees. Convolutions stay OIHW; `num_batches_tracked` is taken
+    where the input has it, else 0. Imports no torchvision: the caller
+    loads the file."""
+    def t(k):                       # a copy, from a tensor or an array
+        return torch.tensor(np.asarray(state_dict[k]))
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(src, dst):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = t(f"{src}.{leaf}").float()
+        nbt = f"{src}.num_batches_tracked"
+        out[f"{dst}.num_batches_tracked"] = (
+            t(nbt).long() if nbt in state_dict
+            else torch.zeros((), dtype=torch.long))
+
+    out["conv1.weight"] = t("conv1.weight").float()
+    bn("bn1", "bn1")
+    for layer in range(1, 5):
+        for blk in range(2):
+            src, dst = f"layer{layer}.{blk}", f"layer{layer}_{blk}"
+            for i in (1, 2):
+                out[f"{dst}.conv{i}.weight"] = \
+                    t(f"{src}.conv{i}.weight").float()
+                bn(f"{src}.bn{i}", f"{dst}.bn{i}")
+            if f"{src}.downsample.0.weight" in state_dict:
+                out[f"{dst}.downsample_conv.weight"] = \
+                    t(f"{src}.downsample.0.weight").float()
+                bn(f"{src}.downsample.1", f"{dst}.downsample_bn")
+    return out

@@ -102,6 +102,17 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """True once the library builds and loads. A failed build raises
+    everywhere else; here it is False (the reason stays in the log of the
+    call that raised: `get_lib()`)."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 # ------------------------------------------------------------------ wrappers
 
 def lap_maximize_batch(scores: np.ndarray, n1: np.ndarray, n2: np.ndarray

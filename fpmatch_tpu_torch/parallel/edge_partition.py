@@ -18,7 +18,8 @@ each peer. One layer then is:
 Both contractions are `ops.assoc.assoc_matvec_auto` on this rank's edge
 lists: K2 / K3 forward and K6 plus the flipped K2 / K3 backward on a CUDA
 tensor, the plain ops on a CPU one. The halo contraction reads the receive
-buffer (p s_cap = N1 rows) and writes local rows, which fit in its row
+buffer (p s_cap = N1 rows; a RowShardPlan's tighter p s_max rows are
+padded with zero rows up to R) and writes local rows, which fit in its row
 space; its Kp is zero and its first R rows are kept. Padded plan slots read
 Ke row E1, an appended zero row, and are masked out of the kernels.
 
@@ -301,11 +302,17 @@ def rank_aggregate(X_loc, Kp_loc, KeL, KeH, recv, rows: RankRows, src2,
         wait()
     p, B, s = recv.shape[:3]
     halo = recv.transpose(0, 1).reshape(B, p * s, *recv.shape[3:])
+    R = X_loc.shape[1]
+    if p * s < R:
+        # a tight plan (RowShardPlan's s_max) receives fewer rows than the
+        # rank owns: zero rows give the contraction its R output rows
+        halo = torch.cat([halo, halo.new_zeros((B, R - p * s,
+                                                *halo.shape[2:]))], dim=1)
     kp0 = torch.zeros(halo.shape[:3], dtype=torch.float32,
                       device=halo.device)
     yh = _contract(halo, kp0, KeH, rows.halo_gather, rows.halo_scatter, src2,
                    dst2, transpose, mH, e2_mask)
-    return y + yh[:, :X_loc.shape[1]]
+    return y + yh[:, :R]
 
 
 def _check_plan(plan: BatchRowPlan, transpose: bool):

@@ -116,24 +116,22 @@ def profiled_ms(fn: Callable, key: str, reps: int = 10,
                 flush: Optional[torch.Tensor] = None) -> Optional[float]:
     """Device time of one launch of the CUDA kernels whose name holds `key`,
     from torch.profiler over `reps` calls of `fn` (one such launch each,
-    `flush` overwritten before each): the kernel alone, without the host
-    time that `time_ms` may hold. None unless the profiler caught exactly
-    `reps` launches, so that a short capture never reads as a fast kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    `flush` overwritten before each; `_measure.profile_window`, after one
+    call outside the window): the kernel alone, without the host time that
+    `time_ms` may hold. None unless the profiler caught exactly `reps`
+    launches, so that a short capture never reads as a fast kernel."""
+    from ._measure import launches_of, profile_window
+
+    def call():
+        if flush is not None:
+            flush.zero_()
+        fn()
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if key in e.key]
-    count = sum(e.count for e in events)
-    if count != reps:
+    _, evs = profile_window(call, "cuda", reps, expect={key: reps})
+    if launches_of(evs, [key])[key] != reps:
         return None
-    return sum(e.device_time_total for e in events) / count / 1e3
+    return sum(ms for k, (_, ms) in evs.items() if key in k) / reps
 
 
 def run_one(r1: int, r2: int, prec: str, device="cuda",

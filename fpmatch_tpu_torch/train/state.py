@@ -42,6 +42,13 @@ def partition_of(name: str) -> str:
     return "main"
 
 
+def param_labels(model: torch.nn.Module) -> Dict[str, str]:
+    """Every parameter's name -> its partition, by the top-level module
+    name (the JAX package labels the leaves of its parameter tree)."""
+    return {name: partition_of(name.split(".", 1)[0])
+            for name, _ in model.named_parameters()}
+
+
 def live_partitions(stage: StageConfig) -> Dict[str, bool]:
     return {"backbone": stage.train_main, "main": stage.train_main,
             "k": stage.train_k, "cls": stage.train_cls}

@@ -3,8 +3,9 @@ for the card:
 
 - `trace(dir)`: a `torch.profiler` trace of the block (CPU and CUDA
   activities) written for TensorBoard;
-- `time_fn`: the median seconds of a call, each call ending in
-  `torch.cuda.synchronize()`, after warm-up calls;
+- `call_times` / `time_fn`: the host-clock seconds of each call / their
+  median, each call ending in `torch.cuda.synchronize()` on a card, after
+  warm-up calls;
 - `assoc_roofline`: the association aggregation's achieved against
   light-speed edges/s from the bytes it must move.
 
@@ -45,23 +46,39 @@ def trace(log_dir: str):
         yield prof
 
 
-def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2) -> float:
-    """Median seconds per call of `fn(*args)` over `iters` calls after
-    `warmup` ones; where there is a card every call ends in
-    `torch.cuda.synchronize()` (the host clock then spans the device's
-    work). Without one it is a host-clock time of the CPU."""
-    sync = torch.cuda.synchronize if torch.cuda.is_available() \
-        else (lambda: None)
+def synchronize(device=None) -> None:
+    """Wait for the work queued on `device` (by default the card, where
+    there is one); nothing to wait for on the CPU."""
+    if device is None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    elif torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def call_times(fn: Callable, *args, iters: int = 20, warmup: int = 2,
+               device=None) -> list:
+    """Host-clock seconds of each of `iters` calls of `fn(*args)` after
+    `warmup` ones, every call ending in `synchronize(device)`: on a card
+    the host clock then spans the device's work; on the CPU it is a
+    host-clock time of the CPU."""
     for _ in range(warmup):
         fn(*args)
-    sync()
+    synchronize(device)
     ts = []
     for _ in range(iters):
         t0 = time.perf_counter()
         fn(*args)
-        sync()
+        synchronize(device)
         ts.append(time.perf_counter() - t0)
-    return float(np.median(ts))
+    return ts
+
+
+def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2,
+            device=None) -> float:
+    """Median seconds per call of `fn(*args)` (`call_times`)."""
+    return float(np.median(call_times(fn, *args, iters=iters, warmup=warmup,
+                                      device=device)))
 
 
 @dataclass

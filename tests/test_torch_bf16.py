@@ -63,8 +63,9 @@ from fpmatch_tpu_torch.train import step as t_step
 from test_torch_ngm import (KEYS, AFAU_KEYS, _mixed_batch,
                             _perm_equal_up_to_ties, _torch_batch)
 from test_torch_utils import (build_tiny, damp_afau_mixing, load_into,
-                              np_tree, randomize_batch_stats, t2n,
-                              tiny_jax_config, tiny_widths, to_torch_config)
+                              np_tree, randomize_batch_stats, shared_init,
+                              t2n, tiny_jax_config, tiny_widths,
+                              to_torch_config)
 
 BF = jnp.bfloat16
 OP_BOUND = 2.0 ** -6
@@ -348,9 +349,7 @@ def model_case():
     and the bucket batch."""
     jcfg = tiny_jax_config(sk_tau=0.5)
     batch = _mixed_batch(jcfg, seed=3)
-    init = jax.jit(functools.partial(JNet(jcfg).init, train=False))
-    v = damp_afau_mixing(randomize_batch_stats(
-        init(jax.random.PRNGKey(0), batch)))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     return jcfg, batch, v
 
 

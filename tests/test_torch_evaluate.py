@@ -45,9 +45,9 @@ from fpmatch_tpu_torch.train import checkpoints as t_checkpoints
 from fpmatch_tpu_torch.train import losses as t_losses
 from fpmatch_tpu_torch.train import step as t_step
 from test_torch_ngm import _perm_equal_up_to_ties
-from test_torch_utils import (build_tiny, damp_afau_mixing, flax_init,
-                              randomize_batch_stats, t2n, tiny_jax_config,
-                              to_torch_config)
+from test_torch_utils import (build_tiny, damp_afau_mixing,
+                              randomize_batch_stats, shared_init, t2n,
+                              tiny_jax_config, to_torch_config)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
 
@@ -362,8 +362,7 @@ def eval_case(tmp_path_factory):
     batch = j_pipeline.collate([jpd.get(i) for i in picks], jcfg)
     assert set(np.asarray(batch.label)) == {0.0, 1.0}
     model = JNet(jcfg)
-    v = flax_init(model, batch, train=False)
-    v = damp_afau_mixing(randomize_batch_stats(v))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     net = build_model(tcfg, device="cpu",
                       state_dict=from_flax_variables(v, tcfg))
     return jcfg, tcfg, batch, model, v, net
@@ -426,7 +425,8 @@ def test_evaluate_loader_hungarian_matches_the_jax_flow(eval_case, tmp_path):
     jpd = j_pipeline.PairDataset(jb, jcfg, augment=False)
     tpd = t_pipeline.PairDataset(tb, tcfg, augment=False)
     jpd.pairs, tpd.pairs = jpd.pairs[:6], tpd.pairs[:6]
-    loader = t_pipeline.DataLoader(tpd, tcfg, batch_size=4, num_workers=1,
+    # two batches of one shape: one JAX compile of each step
+    loader = t_pipeline.DataLoader(tpd, tcfg, batch_size=3, num_workers=1,
                                    drop_last=False, device="cpu")
     perms = []
     res = t_evaluate.evaluate_loader(
@@ -437,7 +437,7 @@ def test_evaluate_loader_hungarian_matches_the_jax_flow(eval_case, tmp_path):
     stage = j_default_stages()[-1]
     jstep, jmasked = j_make_eval_step(model, stage), j_masked(model, stage)
     cls, kp = [], []
-    for b in j_pipeline.DataLoader(jpd, jcfg, batch_size=4, num_workers=1,
+    for b in j_pipeline.DataLoader(jpd, jcfg, batch_size=3, num_workers=1,
                                    drop_last=False):
         _, out = jstep(state, b)
         mask = j_hungarian(np.asarray(out["ds_mat"]),
@@ -495,7 +495,7 @@ def test_evaluate_loader_scores_every_pair_once(eval_case, tmp_path):
     state = TrainState(v["params"], v["batch_stats"], None, jnp.zeros(()))
     jstep = j_make_eval_step(model, j_default_stages()[-1])
     cls, kp = [], []
-    for b in j_pipeline.DataLoader(jpd, jcfg, batch_size=4, num_workers=1,
+    for b in j_pipeline.DataLoader(jpd, jcfg, batch_size=3, num_workers=1,
                                    drop_last=False):
         _, out = jstep(state, b)
         cls.append(np.asarray(out["cls_prob"]))

@@ -45,9 +45,9 @@ from test_torch_bf16 import (_compare_outputs, bf16_cfg, compile_exact,
                              rel)
 from test_torch_ngm import (_compare, _mixed_batch, _perm_equal_up_to_ties,
                             _torch_batch)
-from test_torch_utils import (damp_afau_mixing, flax_init, np_tree,
-                              randomize_batch_stats, t2n, tiny_jax_config,
-                              to_torch_config)
+from test_torch_utils import (damp_afau_mixing, np_tree,
+                              randomize_batch_stats, shared_init, t2n,
+                              tiny_jax_config, to_torch_config)
 
 OP_TOL = 1e-5
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
@@ -204,8 +204,7 @@ def both_case():
         jcfg.shapes, t_max=12))
     batch = _with_triangles(_mixed_batch(jcfg, seed=3), jcfg.shapes.t_max)
     assert (batch.n_tris == jcfg.shapes.t_max).any()
-    v = flax_init(JNet(jcfg), batch, train=False)
-    v = damp_afau_mixing(randomize_batch_stats(v))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     return jcfg, batch, v
 
 

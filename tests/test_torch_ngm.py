@@ -34,8 +34,8 @@ from fpmatch_tpu_torch.convert import from_flax_variables
 from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch as t_synth
 from fpmatch_tpu_torch.kernels.assoc_univ_v3 import plan_univ_v3 as t_plan
 from fpmatch_tpu_torch.models.ngm import NGMNet, PairBatch, build_model
-from test_torch_utils import (damp_afau_mixing, flax_init, np_tree,
-                              randomize_batch_stats, t2n, tiny_jax_config,
+from test_torch_utils import (damp_afau_mixing, randomize_batch_stats,
+                              shared_init, t2n, tiny_jax_config,
                               to_torch_config)
 
 KEYS = ("ds_mat", "raw_scores", "sinkhorn", "perm_mat", "Kp", "ks_loss",
@@ -134,8 +134,7 @@ def bucket_case():
     jcfg = tiny_jax_config(sk_tau=0.05)
     batch = _mixed_batch(jcfg, seed=3)
     model = JNet(jcfg)
-    v = flax_init(model, batch, train=False)
-    v = damp_afau_mixing(randomize_batch_stats(v))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     return jcfg, batch, model, v
 
 
@@ -206,8 +205,7 @@ def univ_case():
     pts2[:n2] = np.asarray(batch.points[0, 1, :n2])
     pts2[n2:, 0] += np.arange(N - n2)
     caps = dict(transpose=True, n1=N, s1_cap=3, s2_cap=3)
-    v = flax_init(JNet(jcfg), batch, train=False)
-    v = damp_afau_mixing(randomize_batch_stats(v))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     return jcfg, batch, (pts2, s1, d1, s2, d2), caps, v
 
 
@@ -303,7 +301,7 @@ def test_ngm_untouched_init_at_model_temperature():
     jcfg = tiny_jax_config()
     batch = _mixed_batch(jcfg, seed=3)
     model = JNet(jcfg)
-    v = np_tree(flax_init(model, batch, train=False))
+    v = shared_init(jcfg)
     want = model.apply(v, batch, train=False)
     tcfg = to_torch_config(jcfg)
     net = build_model(tcfg, device="cpu",
@@ -374,8 +372,7 @@ def test_seeded_init_is_reproducible_and_finite():
 
 def test_converter_rejects_a_tree_that_does_not_fit():
     jcfg = tiny_jax_config()
-    batch = j_synth(jcfg, 1, n_range=(6, 12), image_hw=(32, 48), seed=1)
-    v = np_tree(flax_init(JNet(jcfg), batch, train=False))
+    v = shared_init(jcfg)
     tcfg = to_torch_config(jcfg)
     sd = from_flax_variables(v, tcfg)
     assert set(sd) == set(NGMNet(tcfg).state_dict())

@@ -47,8 +47,8 @@ from fpmatch_tpu_torch.train import state as t_state
 from fpmatch_tpu_torch.train import step as t_step
 from test_torch_mesh_worker import MESHES, World, mesh_checks
 from test_torch_train import NOISE_BOUND
-from test_torch_utils import (damp_afau_mixing, flax_init,
-                              randomize_batch_stats, t2n, tiny_jax_config,
+from test_torch_utils import (damp_afau_mixing, randomize_batch_stats,
+                              shared_init, t2n, tiny_jax_config,
                               to_torch_config)
 
 OUT_KEYS = ("ds_mat", "perm_mat", "cls_prob", "k_prob", "raw_scores")
@@ -218,8 +218,7 @@ def world():
     jcfg = tiny_jax_config(n_max=16, sk_tau=0.05)
     batch = j_synth(jcfg, 4, n_range=(10, 14), image_hw=(32, 48), seed=3)
     batch = jax.tree_util.tree_map(np.asarray, batch)
-    v = damp_afau_mixing(randomize_batch_stats(
-        flax_init(JNet(jcfg), batch, train=False)))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     tcfg = to_torch_config(jcfg)
     sd = {k: t2n(x) for k, x in from_flax_variables(v, tcfg).items()}
     agg = _agg_inputs(5, 4, 16, 5)

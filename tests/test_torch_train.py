@@ -75,8 +75,8 @@ from fpmatch_tpu_torch.train import step as t_step
 from fpmatch_tpu_torch.utils.logging import MetricsLogger
 import test_torch_hyperedge
 from test_torch_ngm import _mixed_batch, _torch_batch
-from test_torch_utils import (build_tiny, damp_afau_mixing, flax_init,
-                              np_tree, randomize_batch_stats, t2n,
+from test_torch_utils import (build_tiny, damp_afau_mixing, np_tree,
+                              randomize_batch_stats, shared_init, t2n,
                               tiny_jax_config, tiny_widths, to_torch_config)
 
 FIXTURE = Path(__file__).parent / "fixtures" / "PolyU-mini" / "DBII"
@@ -98,9 +98,7 @@ def case():
     statistics and damped AFA-U mixing weights."""
     jcfg = tiny_jax_config(sk_tau=0.05)
     batch = _mixed_batch(jcfg, seed=3)
-    init = jax.jit(functools.partial(JNet(jcfg).init, train=False))
-    v = init(jax.random.PRNGKey(0), batch)
-    v = damp_afau_mixing(randomize_batch_stats(v))
+    v = damp_afau_mixing(randomize_batch_stats(shared_init(jcfg)))
     return jcfg, batch, v
 
 
@@ -264,8 +262,8 @@ def options_case():
     jcfg = tiny_jax_config(sk_tau=0.05, hyperedge=True, cls_k_features=True)
     batch = test_torch_hyperedge._with_triangles(_mixed_batch(jcfg, seed=3),
                                                  jcfg.shapes.t_max)
-    v = flax_init(JNet(jcfg), batch, train=False)
-    return jcfg, batch, damp_afau_mixing(randomize_batch_stats(v))
+    return jcfg, batch, damp_afau_mixing(randomize_batch_stats(
+        shared_init(jcfg)))
 
 
 def test_train_step_with_hyperedge_and_cls_k_matches_jax(options_case,

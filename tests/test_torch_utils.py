@@ -2,6 +2,7 @@
 against the JAX package (fpmatch_tpu) on the CPU: inputs are made with numpy
 from a seed and handed to both; weights are initialised by Flax and carried
 across with `fpmatch_tpu_torch.convert`."""
+import copy
 import dataclasses
 import functools
 
@@ -45,6 +46,31 @@ def flax_init(module, *args, **kw):
     the whole model takes a minute or more on the CPU)."""
     return jax.jit(functools.partial(module.init, **kw))(
         jax.random.PRNGKey(0), *args)
+
+
+def shared_init(jcfg):
+    """`flax_init(JNet(jcfg), batch, train=False)` as numpy trees, one
+    jitted init per process for the configs that differ only in their
+    shape buckets (n_max, e_max, t_max) or their temperature: Flax draws
+    each parameter from the PRNG key folded with the module's path, so the
+    values depend on the widths and options, not on those fields or on the
+    batch (a parameter whose shape did would fail the converter's shape
+    check). A fresh copy per call."""
+    key = dataclasses.replace(
+        jcfg, shapes=dataclasses.replace(jcfg.shapes, n_max=16, e_max=96,
+                                         t_max=16),
+        ngm=dataclasses.replace(jcfg.ngm, sk_tau=0.05))
+    return copy.deepcopy(_shared_init(key))
+
+
+@functools.cache
+def _shared_init(jcfg):
+    from fpmatch_tpu.data.synthetic import synthetic_pair_batch
+    from fpmatch_tpu.models.ngm import NGMNet
+
+    batch = synthetic_pair_batch(jcfg, 1, n_range=(8, 12),
+                                 image_hw=(32, 48), seed=1)
+    return np_tree(flax_init(NGMNet(jcfg), batch, train=False))
 
 
 def tiny_widths(cfg):
