@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
+import itertools
 import logging
 import os
 import sys
@@ -118,8 +119,9 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
     :return: dict with `labels`, `scores`, `cls_scores`, `k_probs` (numpy,
         one entry per pair), `report` (verification_metrics of the chosen
         score), `metrics` (mean of the step metrics over batches) and
-        `batch_seconds` (host clock per batch, ending in the device-to-host
-        copy of its scores)
+        `batch_seconds` (per batch, on the monotonic host clock
+        `time.perf_counter`, ending in the device-to-host copy of its
+        scores)
     """
     import torch
 
@@ -127,6 +129,7 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
     from ..evaluation.metrics import verification_metrics
     from ..ops.hungarian import hungarian
     from ..train.step import make_eval_step, make_eval_step_masked
+    from ..utils.profiling import span
 
     if discretize not in ("greedy", "hungarian"):
         raise ValueError(f"discretize must be greedy or hungarian, not "
@@ -140,40 +143,53 @@ def evaluate_loader(model, loader, *, score: str = "fused", log=None,
     labels, cls_scores, k_probs, batch_seconds = [], [], [], []
     sums: dict = {}
     n_batches = len(loader)
-    t0 = t_prev = time.time()
-    for bi, batch in enumerate(loader):
+    batches = iter(loader)
+    t0 = t_prev = time.perf_counter()
+    for bi in itertools.count():
+        # one span a phase of the batch, each with the batch index
+        arg = str(bi)
+        with span("evaluate.load", arg):
+            batch = next(batches, None)
+            if batch is not None and (
+                    not isinstance(batch.images, torch.Tensor)
+                    or batch.images.device != dev):
+                batch = batch.to(dev)
+        if batch is None:
+            break
         if bi % 50 == 0 and bi:
-            rate = bi / (time.time() - t0)
+            rate = bi / (time.perf_counter() - t0)
             log(f"batch {bi}/{n_batches} ({rate:.2f} batches/s, "
                 f"eta {(n_batches - bi) / max(rate, 1e-9):.0f}s)")
-        if not isinstance(batch.images, torch.Tensor) \
-                or batch.images.device != dev:
-            batch = batch.to(dev)
-        metrics, out = eval_step(batch)
+        with span("evaluate.step", arg):
+            metrics, out = eval_step(batch)
         if masked_step is not None:
-            mask = hungarian(out["ds_mat"], batch.n_nodes[:, 0],
-                             batch.n_nodes[:, 1])
-            metrics, out = masked_step(batch, mask)
+            with span("evaluate.hungarian", arg):
+                mask = hungarian(out["ds_mat"], batch.n_nodes[:, 0],
+                                 batch.n_nodes[:, 1])
+                metrics, out = masked_step(batch, mask)
         if on_batch is not None:
-            on_batch(bi, batch, out)
-        labels.append(batch.label.cpu().numpy())
-        cls_scores.append(out["cls_prob"].float().cpu().numpy())
-        k_probs.append(out["k_prob"].float().cpu().numpy())
-        for k, v in metrics.items():
-            sums[k] = sums.get(k, 0.0) + float(v)
-        now = time.time()
+            with span("evaluate.on_batch", arg):
+                on_batch(bi, batch, out)
+        with span("evaluate.fetch", arg):
+            labels.append(batch.label.cpu().numpy())
+            cls_scores.append(out["cls_prob"].float().cpu().numpy())
+            k_probs.append(out["k_prob"].float().cpu().numpy())
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+        now = time.perf_counter()
         batch_seconds.append(now - t_prev)
         t_prev = now
     if not labels:
         raise ValueError("the loader yielded no batch")
-    labels = np.concatenate(labels)
-    cls_scores = np.concatenate(cls_scores)
-    k_probs = np.concatenate(k_probs)
-    scores = {"fused": cls_scores * k_probs, "cls": cls_scores,
-              "k": k_probs}[score]
+    with span("evaluate.report"):
+        labels = np.concatenate(labels)
+        cls_scores = np.concatenate(cls_scores)
+        k_probs = np.concatenate(k_probs)
+        scores = {"fused": cls_scores * k_probs, "cls": cls_scores,
+                  "k": k_probs}[score]
+        report = verification_metrics(labels, scores)
     return {"labels": labels, "scores": scores, "cls_scores": cls_scores,
-            "k_probs": k_probs,
-            "report": verification_metrics(labels, scores),
+            "k_probs": k_probs, "report": report,
             "metrics": {k: v / len(batch_seconds) for k, v in sums.items()},
             "batch_seconds": batch_seconds}
 

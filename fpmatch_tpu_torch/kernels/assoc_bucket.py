@@ -62,6 +62,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from ._cells import bucket_tiling
 
@@ -137,22 +138,23 @@ def plan_bucket(src1, dst1, src2, dst2, n1: int, n2: int,
     strides and version counter — and orientation come back: the GNN layers
     of one forward share one plan, and their backward (dX in the other
     orientation, K6 in the forward's) one more."""
-    given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
-    key = (n1, n2, transpose) + tuple(
-        None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
-                                _version(t), t.dtype, t.device)
-        for t in given)
-    if key in _memo:
-        _memo.move_to_end(key)
-        return _memo[key][1]
-    out1, in1, out2, in2 = ((dst1, src1, dst2, src2) if transpose
-                            else (src1, dst1, src2, dst2))
-    plan = BucketPlan(n1, n2, *_csr(out1, in1, n1, e1_mask),
-                      *_csr(out2, in2, n2, e2_mask))
-    _memo[key] = (given, plan)
-    if len(_memo) > _MEMO_SIZE:
-        _memo.popitem(last=False)
-    return plan
+    with span("op.assoc_plan"):
+        given = (src1, dst1, src2, dst2, e1_mask, e2_mask)
+        key = (n1, n2, transpose) + tuple(
+            None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(),
+                                    _version(t), t.dtype, t.device)
+            for t in given)
+        if key in _memo:
+            _memo.move_to_end(key)
+            return _memo[key][1]
+        out1, in1, out2, in2 = ((dst1, src1, dst2, src2) if transpose
+                                else (src1, dst1, src2, dst2))
+        plan = BucketPlan(n1, n2, *_csr(out1, in1, n1, e1_mask),
+                          *_csr(out2, in2, n2, e2_mask))
+        _memo[key] = (given, plan)
+        if len(_memo) > _MEMO_SIZE:
+            _memo.popitem(last=False)
+        return plan
 
 
 def _check(X, Kp, Ke, src1, dst1, src2, dst2, e1_mask, e2_mask):

@@ -53,6 +53,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .assoc_bucket import plan_bucket
 
@@ -272,11 +273,12 @@ def assoc_edge_grad(dY: torch.Tensor, X: torch.Tensor, src1, dst1, src2,
     CUDA tensors go through the CUDA kernel (a failed build or launch
     raises); CPU tensors through the plain version.
     """
-    _check(dY, X, src1, dst1, src2, dst2, e1_mask, e2_mask)
-    if X.device.type == "cuda":
-        return _launch(dY, X, src1, dst1, src2, dst2, transpose, e1_mask,
-                       e2_mask)
-    if X.device.type == "cpu":
-        return assoc_edge_grad_plain(dY, X, src1, dst1, src2, dst2,
-                                     transpose, e1_mask, e2_mask)
-    raise RuntimeError(f"assoc_edge_grad: unsupported device {X.device}")
+    with span("op.assoc_grad"):
+        _check(dY, X, src1, dst1, src2, dst2, e1_mask, e2_mask)
+        if X.device.type == "cuda":
+            return _launch(dY, X, src1, dst1, src2, dst2, transpose, e1_mask,
+                           e2_mask)
+        if X.device.type == "cpu":
+            return assoc_edge_grad_plain(dY, X, src1, dst1, src2, dst2,
+                                         transpose, e1_mask, e2_mask)
+        raise RuntimeError(f"assoc_edge_grad: unsupported device {X.device}")

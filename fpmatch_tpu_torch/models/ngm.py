@@ -77,6 +77,7 @@ from ..ops.sinkhorn import sinkhorn_batch
 from ..ops.soft_topk import greedy_perm_batch, soft_topk_batch
 from ..ops.spline import edge_pseudo_coords, hyperedge_angle_attrs
 from ..parallel.edge_partition import BatchRowPlan, row_sharded_aggregate
+from ..utils.profiling import span
 from .afau import AFAUEncoder
 from .backbone import BatchNorm2d, ResNet18Backbone
 from .vgg import NoBackbone, VGG16Backbone
@@ -241,6 +242,10 @@ class NGMNet(nn.Module):
 
     def _forward(self, batch: PairBatch, train: bool, hungarian_mask, plan,
                  bn_main: bool, bn_cls: bool) -> Dict[str, torch.Tensor]:
+        # every device launch lies in one stage span (`utils.profiling`):
+        # ngm.input, ngm.backbone, ngm.align, ngm.spline, ngm.affinity,
+        # ngm.gnn_{i}, ngm.assignment (around ngm.afau), ngm.match_cls,
+        # ngm.losses
         cfg = self.cfg.ngm
         cdt = self.compute_dtype
         B, two, H, W, C_in = batch.images.shape
@@ -248,121 +253,132 @@ class NGMNet(nn.Module):
         E = batch.src.shape[2]
         dev = batch.points.device
         rescale_max = float(max(self.cfg.data.rescale))
+        none = self.cfg.backbone.kind == "none"
 
-        node_mask = length_mask(batch.n_nodes.reshape(B * 2), N)
-        edge_mask = length_mask(batch.n_edges.reshape(B * 2), E)
-        pts = batch.points.reshape(B * 2, N, 2)
+        # ---- masks, points, images ---------------------------------------
+        with span("ngm.input"):
+            node_mask = length_mask(batch.n_nodes.reshape(B * 2), N)
+            edge_mask = length_mask(batch.n_edges.reshape(B * 2), E)
+            pts = batch.points.reshape(B * 2, N, 2)
+            if none:
+                # non-image pathway: precomputed keypoint features
+                feats = batch.features.reshape(B * 2, N, -1)
+                present = node_mask.to(feats.dtype)
+            else:
+                imgs = batch.images.reshape(B * 2, H, W, C_in)
+                if imgs.dtype == torch.uint8:
+                    # raw uint8, possibly single-channel luma: normalize
+                    # here; a (..., 1) input broadcasts against the
+                    # per-channel stats
+                    imgs = (imgs.float() / 255.0 - self.norm_means) \
+                        / self.norm_std
+                elif C_in == 1:
+                    imgs = imgs.expand(-1, -1, -1, 3)
+                imgs = imgs.float().to(self.backbone_dtype)
 
-        if self.cfg.backbone.kind == "none":
-            # ---- non-image pathway: precomputed keypoint features --------
-            feats = batch.features.reshape(B * 2, N, -1)
-            node_feat, global_feat = self.backbone(
-                feats, node_mask.to(feats.dtype))
-        else:
-            # ---- backbone over all images at once ------------------------
-            imgs = batch.images.reshape(B * 2, H, W, C_in)
-            if imgs.dtype == torch.uint8:
-                # raw uint8, possibly single-channel luma: normalize here; a
-                # (..., 1) input broadcasts against the per-channel stats
-                imgs = (imgs.float() / 255.0 - self.norm_means) \
-                    / self.norm_std
-            elif C_in == 1:
-                imgs = imgs.expand(-1, -1, -1, 3)
-            node_maps, edges_map, global_feat = self.backbone(
-                imgs.float().to(self.backbone_dtype), bn_main)
-            # channel-normalize in f32, then drop to the compute dtype for
-            # the alignment and everything graph-side
-            node_maps = [normalize_over_channels(m.float()).to(cdt)
-                         for m in node_maps]
-            edges_map = normalize_over_channels(edges_map.float()).to(cdt)
-            global_feat = global_feat.float()
+        # ---- backbone over all images at once ----------------------------
+        with span("ngm.backbone"):
+            if none:
+                node_feat, global_feat = self.backbone(feats, present)
+            else:
+                node_maps, edges_map, global_feat = self.backbone(imgs,
+                                                                  bn_main)
 
-            # ---- bilinear alignment at keypoints -------------------------
-            rescale = self.cfg.data.rescale
-            aligned = [feature_align(m, pts, rescale) for m in node_maps]
-            aligned.append(feature_align(edges_map, pts, rescale))
-            node_feat = torch.cat(aligned, dim=-1)
-        node_feat = node_feat.to(cdt) * node_mask[..., None]
+        # ---- bilinear alignment at keypoints -----------------------------
+        with span("ngm.align"):
+            if not none:
+                # channel-normalize in f32, then drop to the compute dtype
+                # for the alignment and everything graph-side
+                node_maps = [normalize_over_channels(m.float()).to(cdt)
+                             for m in node_maps]
+                edges_map = normalize_over_channels(edges_map.float()).to(cdt)
+                global_feat = global_feat.float()
+                rescale = self.cfg.data.rescale
+                aligned = [feature_align(m, pts, rescale) for m in node_maps]
+                aligned.append(feature_align(edges_map, pts, rescale))
+                node_feat = torch.cat(aligned, dim=-1)
+            node_feat = node_feat.to(cdt) * node_mask[..., None]
+            src = batch.src.reshape(B * 2, E)
+            dst = batch.dst.reshape(B * 2, E)
+            pseudo = edge_pseudo_coords(pts, src, dst, rescale_max)
 
         # ---- spline-conv message passing per graph -----------------------
-        src = batch.src.reshape(B * 2, E)
-        dst = batch.dst.reshape(B * 2, E)
-        pseudo = edge_pseudo_coords(pts, src, dst, rescale_max)
-        x = self.spline(node_feat, src, dst, pseudo, edge_mask, node_mask)
+        with span("ngm.spline"):
+            x = self.spline(node_feat, src, dst, pseudo, edge_mask, node_mask)
 
-        # ---- edge features + global weights ------------------------------
-        Fd = x.shape[-1]
-        take = lambda idx: torch.gather(
-            x, 1, idx.long()[..., None].expand(-1, -1, Fd))
-        edge_feat = (take(src) - take(dst)) * edge_mask[..., None]
+        with span("ngm.affinity"):
+            # ---- edge features + global weights --------------------------
+            Fd = x.shape[-1]
+            take = lambda idx: torch.gather(
+                x, 1, idx.long()[..., None].expand(-1, -1, Fd))
+            edge_feat = (take(src) - take(dst)) * edge_mask[..., None]
 
-        g = global_feat.reshape(B, 2, -1)
-        global_w = normalize_over_channels(
-            torch.cat([g[:, 0], g[:, 1]], dim=-1))
+            g = global_feat.reshape(B, 2, -1)
+            global_w = normalize_over_channels(
+                torch.cat([g[:, 0], g[:, 1]], dim=-1))
 
-        x = x.reshape(B, 2, N, -1)
-        edge_feat = edge_feat.reshape(B, 2, E, -1)
-        node_mask = node_mask.reshape(B, 2, N)
-        edge_mask = edge_mask.reshape(B, 2, E)
-        n1, n2 = batch.n_nodes[:, 0], batch.n_nodes[:, 1]
+            x = x.reshape(B, 2, N, -1)
+            edge_feat = edge_feat.reshape(B, 2, E, -1)
+            node_mask = node_mask.reshape(B, 2, N)
+            edge_mask = edge_mask.reshape(B, 2, E)
+            n1, n2 = batch.n_nodes[:, 0], batch.n_nodes[:, 1]
 
-        vmask = node_mask[:, 0, :, None] & node_mask[:, 1, None, :]
-        emask = edge_mask[:, 0, :, None] & edge_mask[:, 1, None, :]
+            vmask = node_mask[:, 0, :, None] & node_mask[:, 1, None, :]
+            emask = edge_mask[:, 0, :, None] & edge_mask[:, 1, None, :]
 
-        # ---- affinities ---------------------------------------------------
-        Kp = self.vertex_aff(x[:, 0], x[:, 1], global_w, mask=vmask)
-        Ke = 0.5 * self.edge_aff(edge_feat[:, 0], edge_feat[:, 1], global_w,
-                                 mask=emask)
+            # ---- affinities -----------------------------------------------
+            Kp = self.vertex_aff(x[:, 0], x[:, 1], global_w, mask=vmask)
+            Ke = 0.5 * self.edge_aff(edge_feat[:, 0], edge_feat[:, 1],
+                                     global_w, mask=emask)
 
-        # ---- third-order (triangle) affinities ---------------------------
-        tri_extra = ()
-        if cfg.hyperedge:
-            T = batch.tri.shape[2]
-            tri_mask = length_mask(batch.n_tris.reshape(B * 2), T)
-            # angle cosines in f32 whatever the compute dtype
-            tri_attr = hyperedge_angle_attrs(
-                x.reshape(B * 2, N, -1).float(),
-                batch.tri.reshape(B * 2, T, 3),
-                tri_mask.float()).reshape(B, 2, T, 3)
-            tri_mask = tri_mask.reshape(B, 2, T)
-            tmask = tri_mask[:, 0, :, None] & tri_mask[:, 1, None, :]
-            Kt = 0.5 * self.tri_aff(tri_attr[:, 0], tri_attr[:, 1], global_w,
-                                    mask=tmask.to(x.dtype))
-            tri_extra = (Kt, batch.tri[:, 0], batch.tri[:, 1],
-                         tri_mask[:, 0], tri_mask[:, 1])
+            # ---- third-order (triangle) affinities -----------------------
+            tri_extra = ()
+            if cfg.hyperedge:
+                T = batch.tri.shape[2]
+                tri_mask = length_mask(batch.n_tris.reshape(B * 2), T)
+                # angle cosines in f32 whatever the compute dtype
+                tri_attr = hyperedge_angle_attrs(
+                    x.reshape(B * 2, N, -1).float(),
+                    batch.tri.reshape(B * 2, T, 3),
+                    tri_mask.float()).reshape(B, 2, T, 3)
+                tri_mask = tri_mask.reshape(B, 2, T)
+                tmask = tri_mask[:, 0, :, None] & tri_mask[:, 1, None, :]
+                Kt = 0.5 * self.tri_aff(tri_attr[:, 0], tri_attr[:, 1],
+                                        global_w, mask=tmask.to(x.dtype))
+                tri_extra = (Kt, batch.tri[:, 0], batch.tri[:, 1],
+                             tri_mask[:, 0], tri_mask[:, 1])
+
+            emb = Kp[..., None] if cfg.first_order else torch.ones(
+                (B, N, N, 1), dtype=Kp.dtype, device=dev)
+            kp_present = vmask.to(Kp.dtype)
+
+            # (B, N, N, 1) rownnz(K^T), at least 1: the routes that
+            # aggregate outside `AssocGNNLayer` divide by it
+            if plan is not None or batch.row_plan is not None:
+                deg = torch.clamp(assoc_degree(
+                    kp_present, edge_mask[:, 0], edge_mask[:, 1],
+                    batch.src[:, 0], batch.dst[:, 0], batch.src[:, 1],
+                    batch.dst[:, 1], N, N, transpose=True), min=1.0)[..., None]
+            if plan is not None and (isinstance(plan, UnivPlanV3) or (
+                    isinstance(plan, UnivPlanDev)
+                    and plan.in1_slot.device != dev)):
+                plan = plan.to(dev)
 
         # ---- association-graph GNN ---------------------------------------
-        emb = Kp[..., None] if cfg.first_order else torch.ones(
-            (B, N, N, 1), dtype=Kp.dtype, device=dev)
-        kp_present = vmask.to(Kp.dtype)
-
-        def mean_degree():
-            """(B, N, N, 1) rownnz(K^T), at least 1: the routes that
-            aggregate outside `AssocGNNLayer` divide by it."""
-            deg = assoc_degree(kp_present, edge_mask[:, 0], edge_mask[:, 1],
-                               batch.src[:, 0], batch.dst[:, 0],
-                               batch.src[:, 1], batch.dst[:, 1], N, N,
-                               transpose=True)
-            return torch.clamp(deg, min=1.0)[..., None]
-
         if plan is not None:
             # ---- UNIV-scale single-pair serving route ---------------------
             if B != 1:
                 raise ValueError("univ_plan is a single-pair path (B == 1)")
             if cfg.hyperedge:
                 raise NotImplementedError("hyperedge + univ kernel")
-            if isinstance(plan, UnivPlanV3) or (
-                    isinstance(plan, UnivPlanDev)
-                    and plan.in1_slot.device != dev):
-                plan = plan.to(dev)
-            deg = mean_degree()
             kernel_bf16 = self.univ_bf16 or cdt == torch.bfloat16
             for i in range(cfg.gnn_layers):
-                xin = emb[0].bfloat16() if kernel_bf16 else emb[0]
-                y = assoc_matvec_univ_v3(xin, Kp[0], Ke[0], plan)
-                layer = getattr(self, f"gnn_{i}")
-                emb = AssocGNNLayerBatched.forward(layer, emb, y[None] / deg,
-                                                   kp_present, n1, n2)
+                with span(f"ngm.gnn_{i}"):
+                    xin = emb[0].bfloat16() if kernel_bf16 else emb[0]
+                    y = assoc_matvec_univ_v3(xin, Kp[0], Ke[0], plan)
+                    layer = getattr(self, f"gnn_{i}")
+                    emb = AssocGNNLayerBatched.forward(
+                        layer, emb, y[None] / deg, kp_present, n1, n2)
         elif batch.row_plan is not None:
             # ---- edge-sharded route over the grid's edge group ------------
             if self.grid is None:
@@ -371,75 +387,85 @@ class NGMNet(nn.Module):
             if cfg.hyperedge:
                 raise NotImplementedError(
                     "hyperedge + edge sharding not combined")
-            deg = mean_degree()
             for i in range(cfg.gnn_layers):
-                xin = emb.to(cdt)
-                agg = row_sharded_aggregate(
-                    xin, Kp, Ke, batch.row_plan, batch.src[:, 1],
-                    batch.dst[:, 1], self.grid, e1_mask=edge_mask[:, 0],
-                    e2_mask=edge_mask[:, 1]) / deg
-                emb = AssocGNNLayerBatched.forward(
-                    getattr(self, f"gnn_{i}"), xin, agg, kp_present, n1, n2)
+                with span(f"ngm.gnn_{i}"):
+                    xin = emb.to(cdt)
+                    agg = row_sharded_aggregate(
+                        xin, Kp, Ke, batch.row_plan, batch.src[:, 1],
+                        batch.dst[:, 1], self.grid, e1_mask=edge_mask[:, 0],
+                        e2_mask=edge_mask[:, 1]) / deg
+                    emb = AssocGNNLayerBatched.forward(
+                        getattr(self, f"gnn_{i}"), xin, agg, kp_present, n1,
+                        n2)
         else:
             for i in range(cfg.gnn_layers):
-                emb = getattr(self, f"gnn_{i}")(
-                    emb, Kp, Ke, batch.src[:, 0], batch.dst[:, 0],
-                    batch.src[:, 1], batch.dst[:, 1], kp_present,
-                    edge_mask[:, 0], edge_mask[:, 1], n1, n2, *tri_extra)
+                with span(f"ngm.gnn_{i}"):
+                    emb = getattr(self, f"gnn_{i}")(
+                        emb, Kp, Ke, batch.src[:, 0], batch.dst[:, 0],
+                        batch.src[:, 1], batch.dst[:, 1], kp_present,
+                        edge_mask[:, 0], edge_mask[:, 1], n1, n2, *tri_extra)
 
-        # ---- scores + Sinkhorn -------------------------------------------
-        # f32 (Flax promotes a bf16 input against its f32 parameters)
-        s = self.classifier(emb.float())[..., 0]            # (B, N, N)
         # the two Sinkhorn chains are recomputed in the backward when
         # cfg.remat_sinkhorn (memory, not numbers), as the JAX model's
         # jax.checkpoint
         rm = remat if cfg.remat_sinkhorn else (lambda fn, *a: fn(*a))
-        ss = rm(lambda x: sinkhorn_batch(x, n1, n2, tau=cfg.sk_tau,
-                                         max_iter=cfg.sk_iter,
-                                         dummy_row=True), s)
-
-        min_pts = torch.minimum(n1, n2).float()
-        supervised_ks = batch.gt_k / torch.clamp(min_pts, min=1.0)
+        with span("ngm.assignment"):
+            # ---- scores + Sinkhorn ---------------------------------------
+            # f32 (Flax promotes a bf16 input against its f32 parameters)
+            s = self.classifier(emb.float())[..., 0]            # (B, N, N)
+            ss = rm(lambda x: sinkhorn_batch(x, n1, n2, tau=cfg.sk_tau,
+                                             max_iter=cfg.sk_iter,
+                                             dummy_row=True), s)
+            min_pts = torch.minimum(n1, n2).float()
+            supervised_ks = batch.gt_k / torch.clamp(min_pts, min=1.0)
 
         # ---- k prediction (AFA-U), on the detached Sinkhorn map ----------
-        ks = (self.afau(ss.detach(), n1, n2) if cfg.regression
-              else supervised_ks)
+        if cfg.regression:
+            with span("ngm.afau"):
+                ks = self.afau(ss.detach(), n1, n2)
+        else:
+            ks = supervised_ks
 
-        # ---- soft top-k + discretization ---------------------------------
-        topk_target = batch.gt_k if train else ks * min_pts
-        ss_out = rm(lambda x: soft_topk_batch(
-            x, topk_target, n1, n2, tau=cfg.sk_tau, max_iter=cfg.sk_iter,
-            extra_iter=cfg.topk_extra_iter), ss)
-        rank = ss_out if hungarian_mask is None else hungarian_mask * ss_out
-        x_perm = greedy_perm_batch(rank.detach(), ks.detach() * min_pts, n1,
-                                   n2).detach()
+        with span("ngm.assignment"):
+            # ---- soft top-k + discretization -----------------------------
+            topk_target = batch.gt_k if train else ks * min_pts
+            ss_out = rm(lambda x: soft_topk_batch(
+                x, topk_target, n1, n2, tau=cfg.sk_tau, max_iter=cfg.sk_iter,
+                extra_iter=cfg.topk_extra_iter), ss)
+            rank = ss_out if hungarian_mask is None \
+                else hungarian_mask * ss_out
+            x_perm = greedy_perm_batch(rank.detach(), ks.detach() * min_pts,
+                                       n1, n2).detach()
 
         # ---- match classification ----------------------------------------
-        matched_sim = s * x_perm
-        extra = None
-        if cfg.cls_k_features:
-            # k statistics beside the map; detached: the classifier's stage
-            # trains alone
-            n_matched = x_perm.sum(dim=(1, 2))
-            sum_sim = matched_sim.sum(dim=(1, 2))
-            extra = torch.stack(
-                [ks, n_matched / torch.clamp(min_pts, min=1.0),
-                 sum_sim / torch.clamp(n_matched, min=1.0)], dim=-1).detach()
-        cls_logits = self.match_cls(matched_sim, n1, n2, train=bn_cls,
-                                    extra_features=extra)
-        cls_prob = torch.sigmoid(cls_logits)
+        with span("ngm.match_cls"):
+            matched_sim = s * x_perm
+            extra = None
+            if cfg.cls_k_features:
+                # k statistics beside the map; detached: the classifier's
+                # stage trains alone
+                n_matched = x_perm.sum(dim=(1, 2))
+                sum_sim = matched_sim.sum(dim=(1, 2))
+                extra = torch.stack(
+                    [ks, n_matched / torch.clamp(min_pts, min=1.0),
+                     sum_sim / torch.clamp(n_matched, min=1.0)],
+                    dim=-1).detach()
+            cls_logits = self.match_cls(matched_sim, n1, n2, train=bn_cls,
+                                        extra_features=extra)
+            cls_prob = torch.sigmoid(cls_logits)
 
         # ---- auxiliary losses --------------------------------------------
-        label = batch.label
-        cls_loss = torch.mean(
-            torch.clamp(cls_logits, min=0) - cls_logits * label
-            + torch.log1p(torch.exp(-torch.abs(cls_logits))))
-        if cfg.regression:
-            ks_loss = torch.mean((ks - supervised_ks) ** 2) * cfg.k_factor
-            ks_error = torch.mean(torch.abs(ks * min_pts - batch.gt_k))
-        else:
-            ks_loss = torch.zeros((), device=dev)
-            ks_error = torch.zeros((), device=dev)
+        with span("ngm.losses"):
+            label = batch.label
+            cls_loss = torch.mean(
+                torch.clamp(cls_logits, min=0) - cls_logits * label
+                + torch.log1p(torch.exp(-torch.abs(cls_logits))))
+            if cfg.regression:
+                ks_loss = torch.mean((ks - supervised_ks) ** 2) * cfg.k_factor
+                ks_error = torch.mean(torch.abs(ks * min_pts - batch.gt_k))
+            else:
+                ks_loss = torch.zeros((), device=dev)
+                ks_error = torch.zeros((), device=dev)
 
         return {
             "ds_mat": ss_out,

@@ -29,6 +29,7 @@ import torch
 
 from ..kernels.assoc_bucket import assoc_matvec_bucket, assoc_matvec_large
 from ..kernels.assoc_grad import assoc_edge_grad
+from ..utils.profiling import span
 
 
 def _batch_offsets(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -129,17 +130,20 @@ def _matvec_dispatch(X, Kp, Ke, src1, dst1, src2, dst2, transpose,
     """The forward of `assoc_matvec_auto` on the tensors as they are (no
     autograd): the CUDA kernels for CUDA tensors, the plain ops for CPU
     ones. Returns (Y, the kernel's name or None)."""
-    large = Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD
-    if X.device.type == "cuda":
-        kernel = assoc_matvec_large if large else assoc_matvec_bucket
-        return kernel(X, Kp, Ke, src1, dst1, src2, dst2, transpose=transpose,
-                      e1_mask=e1_mask, e2_mask=e2_mask), \
-            ("assoc_large" if large else "assoc_bucket")
-    if large:
-        return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
-                                    transpose=transpose, chunk=CHUNK_E1), None
-    return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
-                        transpose=transpose), None
+    with span("op.assoc"):
+        large = Ke.shape[1] * Ke.shape[2] >= CHUNKED_NNZ_THRESHOLD
+        if X.device.type == "cuda":
+            kernel = assoc_matvec_large if large else assoc_matvec_bucket
+            return kernel(X, Kp, Ke, src1, dst1, src2, dst2,
+                          transpose=transpose, e1_mask=e1_mask,
+                          e2_mask=e2_mask), \
+                ("assoc_large" if large else "assoc_bucket")
+        if large:
+            return assoc_matvec_chunked(X, Kp, Ke, src1, dst1, src2, dst2,
+                                        transpose=transpose,
+                                        chunk=CHUNK_E1), None
+        return assoc_matvec(X, Kp, Ke, src1, dst1, src2, dst2,
+                            transpose=transpose), None
 
 
 # launches of the forward kernels made by `_AssocMatvec.backward` (dX), per

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .masking import NEG_INF, masked_logsumexp
 
 DUMMY_LOG = -100.0
@@ -32,50 +33,51 @@ def sinkhorn_batch(s: torch.Tensor, n1, n2, *, tau: float = 1.0,
     :param n1, n2: (B,) integer valid counts
     :return: (B, S1, S2) DS matrices, zero outside the valid blocks
     """
-    B, s1, s2 = s.shape
-    dev = s.device
-    n1 = torch.as_tensor(n1, device=dev).reshape(B, 1, 1)
-    n2 = torch.as_tensor(n2, device=dev).reshape(B, 1, 1)
-    rows = torch.arange(s1, device=dev).reshape(1, s1, 1)
-    cols = torch.arange(s2, device=dev).reshape(1, 1, s2)
-    valid = (rows < n1) & (cols < n2)
+    with span("op.sinkhorn"):
+        B, s1, s2 = s.shape
+        dev = s.device
+        n1 = torch.as_tensor(n1, device=dev).reshape(B, 1, 1)
+        n2 = torch.as_tensor(n2, device=dev).reshape(B, 1, 1)
+        rows = torch.arange(s1, device=dev).reshape(1, s1, 1)
+        cols = torch.arange(s2, device=dev).reshape(1, 1, s2)
+        valid = (rows < n1) & (cols < n2)
 
-    log_s = torch.where(valid, s / tau, NEG_INF)
+        log_s = torch.where(valid, s / tau, NEG_INF)
 
-    orient_rows = n1 <= n2                     # (B, 1, 1)
-    if dummy_row:
-        # dummy band: extra rows n1..n2 (orient_rows) or extra cols n2..n1
-        dummy_r = (rows >= n1) & (rows < n2) & (cols < n2)
-        dummy_c = (cols >= n2) & (cols < n1) & (rows < n1)
-        dummy = torch.where(orient_rows, dummy_r, dummy_c)
-        log_s = torch.where(dummy, DUMMY_LOG, log_s)
-        region = valid | dummy
-    else:
-        region = valid
+        orient_rows = n1 <= n2                     # (B, 1, 1)
+        if dummy_row:
+            # dummy band: extra rows n1..n2 (orient_rows) or extra cols n2..n1
+            dummy_r = (rows >= n1) & (rows < n2) & (cols < n2)
+            dummy_c = (cols >= n2) & (cols < n1) & (rows < n1)
+            dummy = torch.where(orient_rows, dummy_r, dummy_c)
+            log_s = torch.where(dummy, DUMMY_LOG, log_s)
+            region = valid | dummy
+        else:
+            region = valid
 
-    if s1 == s2:
-        # square bucket: transpose the flipped samples up front, run the
-        # row-first loop for everybody, transpose back
-        flip = ~orient_rows
-        ls = torch.where(flip, log_s.transpose(1, 2), log_s)
-        reg = torch.where(flip, region.transpose(1, 2), region)
-        for _ in range(max_iter // 2):
-            ls = _normalize(_normalize(ls, reg, -1), reg, -2)
-        if max_iter % 2:
-            ls = _normalize(ls, reg, -1)
-        log_s = torch.where(flip, ls.transpose(1, 2), ls)
-    else:
-        # rectangular pad: both axis normalizations + a per-sample select
-        def half(ls, even: bool):
-            axis1 = _normalize(ls, region, -1)
-            axis0 = _normalize(ls, region, -2)
-            return torch.where(orient_rows == even, axis1, axis0)
+        if s1 == s2:
+            # square bucket: transpose the flipped samples up front, run the
+            # row-first loop for everybody, transpose back
+            flip = ~orient_rows
+            ls = torch.where(flip, log_s.transpose(1, 2), log_s)
+            reg = torch.where(flip, region.transpose(1, 2), region)
+            for _ in range(max_iter // 2):
+                ls = _normalize(_normalize(ls, reg, -1), reg, -2)
+            if max_iter % 2:
+                ls = _normalize(ls, reg, -1)
+            log_s = torch.where(flip, ls.transpose(1, 2), ls)
+        else:
+            # rectangular pad: both axis normalizations + a per-sample select
+            def half(ls, even: bool):
+                axis1 = _normalize(ls, region, -1)
+                axis0 = _normalize(ls, region, -2)
+                return torch.where(orient_rows == even, axis1, axis0)
 
-        for _ in range(max_iter // 2):
-            log_s = half(half(log_s, True), False)
-        if max_iter % 2:
-            log_s = half(log_s, True)
-    return torch.where(valid, torch.exp(log_s), 0.0)
+            for _ in range(max_iter // 2):
+                log_s = half(half(log_s, True), False)
+            if max_iter % 2:
+                log_s = half(log_s, True)
+        return torch.where(valid, torch.exp(log_s), 0.0)
 
 
 def sinkhorn(s: torch.Tensor, n1, n2, *, tau: float = 1.0, max_iter: int = 10,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .masking import NEG_INF, masked_max, masked_min, rect_mask
 
 
@@ -64,50 +65,53 @@ def soft_topk_batch(scores: torch.Tensor, ks, n1, n2, *, tau: float = 1.0,
     :return: (B, S1, S2) soft selection probabilities, zero outside the valid
              blocks
     """
-    B, s1, s2 = scores.shape
-    dev = scores.device
-    n1 = torch.as_tensor(n1, device=dev).reshape(B)
-    n2 = torch.as_tensor(n2, device=dev).reshape(B)
-    valid = rect_mask(n1, n2, s1, s2)                     # (B, S1, S2)
-    total = (n1 * n2).to(scores.dtype)                    # (B,)
+    with span("op.soft_topk"):
+        B, s1, s2 = scores.shape
+        dev = scores.device
+        n1 = torch.as_tensor(n1, device=dev).reshape(B)
+        n2 = torch.as_tensor(n2, device=dev).reshape(B)
+        valid = rect_mask(n1, n2, s1, s2)                     # (B, S1, S2)
+        total = (n1 * n2).to(scores.dtype)                    # (B,)
 
-    lo = masked_min(scores, valid, dim=(1, 2))
-    hi = masked_max(scores, valid, dim=(1, 2))
-    anchors = torch.stack([lo, hi], dim=-1)               # (B, 2)
-    dist = -torch.abs(scores[..., None] - anchors[:, None, None, :])
+        lo = masked_min(scores, valid, dim=(1, 2))
+        hi = masked_max(scores, valid, dim=(1, 2))
+        anchors = torch.stack([lo, hi], dim=-1)               # (B, 2)
+        dist = -torch.abs(scores[..., None] - anchors[:, None, None, :])
 
-    log_s = torch.where(valid[..., None], dist / tau, NEG_INF)
-    k = torch.minimum(torch.clamp(torch.as_tensor(
-        ks, device=dev, dtype=scores.dtype).reshape(B), min=0.0), total)
-    # marginals clamped away from 0 (log(0) = -inf); exp(log(1e-20)) underflows
-    # in the forward, and the exact zero map for k == 0 is restored below
-    log_col_prob = torch.log(torch.clamp(
-        torch.stack([total - k, k], dim=-1), min=1e-20))  # (B, 2)
+        log_s = torch.where(valid[..., None], dist / tau, NEG_INF)
+        k = torch.minimum(torch.clamp(torch.as_tensor(
+            ks, device=dev, dtype=scores.dtype).reshape(B), min=0.0), total)
+        # marginals clamped away from 0 (log(0) = -inf); exp(log(1e-20))
+        # underflows in the forward, and the exact zero map for k == 0 is
+        # restored below
+        log_col_prob = torch.log(torch.clamp(
+            torch.stack([total - k, k], dim=-1), min=1e-20))  # (B, 2)
 
-    for _ in range(max_iter // 2):
-        log_s = _col_norm(_row_norm(log_s, valid), valid, log_col_prob)
-    if max_iter % 2:
-        log_s = _row_norm(log_s, valid)
-    odd_start = bool(max_iter % 2)
+        for _ in range(max_iter // 2):
+            log_s = _col_norm(_row_norm(log_s, valid), valid, log_col_prob)
+        if max_iter % 2:
+            log_s = _row_norm(log_s, valid)
+        odd_start = bool(max_iter % 2)
 
-    def gate(ls, upd):
-        over = (torch.where(valid[..., None], ls, NEG_INF) > 0
-                ).flatten(1).any(dim=1)
-        return torch.where(over[:, None, None, None], upd, ls)
+        def gate(ls, upd):
+            over = (torch.where(valid[..., None], ls, NEG_INF) > 0
+                    ).flatten(1).any(dim=1)
+            return torch.where(over[:, None, None, None], upd, ls)
 
-    def step(ls, col: bool):
-        return (_col_norm(ls, valid, log_col_prob) if col
-                else _row_norm(ls, valid))
+        def step(ls, col: bool):
+            return (_col_norm(ls, valid, log_col_prob) if col
+                    else _row_norm(ls, valid))
 
-    for _ in range(extra_iter // 2):
-        log_s = gate(log_s, step(log_s, odd_start))
-        log_s = gate(log_s, step(log_s, not odd_start))
-    if extra_iter % 2:
-        log_s = gate(log_s, step(log_s, odd_start))
+        for _ in range(extra_iter // 2):
+            log_s = gate(log_s, step(log_s, odd_start))
+            log_s = gate(log_s, step(log_s, not odd_start))
+        if extra_iter % 2:
+            log_s = gate(log_s, step(log_s, odd_start))
 
-    out = torch.exp(log_s[..., 1])
-    out = torch.where(k[:, None, None] > 0, out, 0.0)     # exact zero at k == 0
-    return torch.where(valid, out, 0.0)
+        out = torch.exp(log_s[..., 1])
+        # exact zero at k == 0
+        out = torch.where(k[:, None, None] > 0, out, 0.0)
+        return torch.where(valid, out, 0.0)
 
 
 def soft_topk(scores, k, n1, n2, **kw):
@@ -129,26 +133,28 @@ def greedy_perm_batch(score_rank: torch.Tensor, ks, n1, n2) -> torch.Tensor:
     :param ks: (B,) float match counts (rounded half-to-even)
     :return: (B, S1, S2) 0/1 matrices
     """
-    B, s1, s2 = score_rank.shape
-    dev = score_rank.device
-    n1 = torch.as_tensor(n1, device=dev).reshape(B)
-    n2 = torch.as_tensor(n2, device=dev).reshape(B)
-    valid = rect_mask(n1, n2, s1, s2)
-    flat = torch.where(valid, score_rank, NEG_INF).reshape(B, -1).clone()
-    k_round = torch.round(torch.as_tensor(ks, device=dev).reshape(B)
-                          ).to(torch.int32)
-    x = torch.zeros((B, s1 * s2), dtype=score_rank.dtype, device=dev)
-    rows_of = torch.arange(s1 * s2, device=dev) // s2     # (S1*S2,)
-    cols_of = torch.arange(s1 * s2, device=dev) % s2
-    one = torch.ones((B, 1), dtype=score_rank.dtype, device=dev)
+    with span("op.greedy"):
+        B, s1, s2 = score_rank.shape
+        dev = score_rank.device
+        n1 = torch.as_tensor(n1, device=dev).reshape(B)
+        n2 = torch.as_tensor(n2, device=dev).reshape(B)
+        valid = rect_mask(n1, n2, s1, s2)
+        flat = torch.where(valid, score_rank, NEG_INF).reshape(B, -1).clone()
+        k_round = torch.round(torch.as_tensor(ks, device=dev).reshape(B)
+                              ).to(torch.int32)
+        x = torch.zeros((B, s1 * s2), dtype=score_rank.dtype, device=dev)
+        rows_of = torch.arange(s1 * s2, device=dev) // s2     # (S1*S2,)
+        cols_of = torch.arange(s1 * s2, device=dev) % s2
+        one = torch.ones((B, 1), dtype=score_rank.dtype, device=dev)
 
-    for i in range(min(s1, s2)):
-        val, idx = flat.max(dim=1, keepdim=True)          # (B, 1)
-        ok = (i < k_round)[:, None] & (val > NEG_INF)     # (B, 1)
-        x.scatter_(1, idx, torch.where(ok, one, x.gather(1, idx)))
-        dead = (rows_of[None, :] == idx // s2) | (cols_of[None, :] == idx % s2)
-        flat = torch.where(ok & dead, NEG_INF, flat)
-    return x.reshape(B, s1, s2)
+        for i in range(min(s1, s2)):
+            val, idx = flat.max(dim=1, keepdim=True)          # (B, 1)
+            ok = (i < k_round)[:, None] & (val > NEG_INF)     # (B, 1)
+            x.scatter_(1, idx, torch.where(ok, one, x.gather(1, idx)))
+            dead = (rows_of[None, :] == idx // s2) \
+                | (cols_of[None, :] == idx % s2)
+            flat = torch.where(ok & dead, NEG_INF, flat)
+        return x.reshape(B, s1, s2)
 
 
 def greedy_perm(score_rank, k, n1, n2):

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from ..core.config import StageConfig
 from ..evaluation.metrics import matching_accuracy
 from ..models.ngm import NGMNet, PairBatch
+from ..utils.profiling import backward_spans, span
 from .losses import permutation_loss
 from .state import TrainState, clip_by_global_norm_
 
@@ -62,34 +63,35 @@ def loss_and_metrics(model: NGMNet, batch: PairBatch, stage: StageConfig,
     with contextlib.nullcontext() if train else torch.inference_mode():
         out = model(batch, train=train, hungarian_mask=hungarian_mask,
                     univ_plan=univ_plan, **bn_kw)
-        n1 = batch.n_nodes[:, 0]
-        n2 = batch.n_nodes[:, 1]
-        perm_loss = permutation_loss(out["ds_mat"], batch.gt_perm, n1, n2,
-                                     group=group)
-        ks_loss = out["ks_loss"] * scale
-        cls_loss = out["cls_loss"] * scale
-        total = torch.zeros((), device=perm_loss.device)
-        if stage.loss_perm:
-            total = total + perm_loss
-        if stage.loss_ks:
-            total = total + ks_loss
-        if stage.loss_cls:
-            total = total + cls_loss
-        acc = torch.mean(matching_accuracy(out["perm_mat"], batch.gt_perm,
-                                           n1, n2)) * scale
-        metrics = {
-            "loss": perm_loss,
-            "total_loss": total,
-            "ks_loss": ks_loss,
-            "ks_error": out["ks_error"] * scale,
-            "cls_loss": cls_loss,
-            "accuracy": acc,
-        }
-        if group is not None:
-            summed = torch.stack([v.detach().float() for v in
-                                  metrics.values()])
-            dist.all_reduce(summed, group=group)
-            metrics = dict(zip(metrics, summed.unbind()))
+        with span("step.loss"):
+            n1 = batch.n_nodes[:, 0]
+            n2 = batch.n_nodes[:, 1]
+            perm_loss = permutation_loss(out["ds_mat"], batch.gt_perm, n1,
+                                         n2, group=group)
+            ks_loss = out["ks_loss"] * scale
+            cls_loss = out["cls_loss"] * scale
+            total = torch.zeros((), device=perm_loss.device)
+            if stage.loss_perm:
+                total = total + perm_loss
+            if stage.loss_ks:
+                total = total + ks_loss
+            if stage.loss_cls:
+                total = total + cls_loss
+            acc = torch.mean(matching_accuracy(out["perm_mat"], batch.gt_perm,
+                                               n1, n2)) * scale
+            metrics = {
+                "loss": perm_loss,
+                "total_loss": total,
+                "ks_loss": ks_loss,
+                "ks_error": out["ks_error"] * scale,
+                "cls_loss": cls_loss,
+                "accuracy": acc,
+            }
+            if group is not None:
+                summed = torch.stack([v.detach().float() for v in
+                                      metrics.values()])
+                dist.all_reduce(summed, group=group)
+                metrics = dict(zip(metrics, summed.unbind()))
     return total, (metrics, out)
 
 
@@ -123,19 +125,24 @@ def make_train_step(model: NGMNet, stage: StageConfig, grid=None):
     detached tensors on the batch's device."""
 
     def train_step(state: TrainState, batch: PairBatch):
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        total, (metrics, _) = loss_and_metrics(model, batch, stage,
-                                               train=True, grid=grid)
-        total.backward()
-        params = [p for g in opt.param_groups for p in g["params"]]
-        if grid is not None:
-            sync_gradients(params, grid)
-        if stage.grad_clip is not None:
-            clip_by_global_norm_(params, stage.grad_clip)
-        opt.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with span("train_step", str(state.step)):
+            opt = state.optimizer
+            opt.zero_grad(set_to_none=True)
+            total, (metrics, _) = loss_and_metrics(model, batch, stage,
+                                                   train=True, grid=grid)
+            with backward_spans(total, "train_step.backward"):
+                total.backward()
+            params = [p for g in opt.param_groups for p in g["params"]]
+            if grid is not None:
+                with span("train_step.grad_sync"):
+                    sync_gradients(params, grid)
+            if stage.grad_clip is not None:
+                with span("train_step.clip"):
+                    clip_by_global_norm_(params, stage.grad_clip)
+            with span("train_step.optimizer"):
+                opt.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 

@@ -3,6 +3,16 @@ for the card:
 
 - `trace(dir)`: a `torch.profiler` trace of the block (CPU and CUDA
   activities) written for TensorBoard;
+- `span(name, args=None)`: the program's own spans, `record_function`
+  ranges that land in the same profiler trace as the device events (one
+  clock), and only while a profiler records: otherwise one shared
+  `nullcontext`, well under a microsecond. Names are `<layer>.<stage>`
+  (`evaluate.fetch`, `ngm.affinity`, `op.sinkhorn`); every span opened
+  inside a train step's backward (`backward_spans`), on whichever thread,
+  ends in `.backward` (`op.assoc.backward`);
+- `backward_spans(root, name)`: around `root.backward()`, the span `name`
+  on the calling thread and on the autograd engine's thread that runs the
+  backward, and the `.backward` suffix for the spans opened meanwhile;
 - `call_times` / `time_fn`: the host-clock seconds of each call / their
   median, each call ending in `torch.cuda.synchronize()` on a card, after
   warm-up calls;
@@ -18,9 +28,10 @@ degraded dispatch mode.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -29,6 +40,59 @@ PEAK_DEVICE = "NVIDIA H100 80GB HBM3"
 HBM_BYTES_PER_S = 3.35e12       # HBM3 bytes/s
 F32_FLOPS = 67e12               # float32 outside the tensor cores
 BF16_FLOPS = 989e12             # bf16 on the tensor cores, dense
+
+
+_OFF = contextlib.nullcontext()
+# the suffix of every span name, ".backward" while `backward_spans` is open:
+# process-wide, so that the autograd engine's threads read it too
+_suffix = ""
+
+
+def span(name: str, args: Optional[str] = None):
+    """A `record_function` range `name` (+ `.backward` inside a backward),
+    `args` its argument string, while a profiler records; one shared
+    `nullcontext` otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name + _suffix, args)
+
+
+@contextlib.contextmanager
+def backward_spans(root: torch.Tensor, name: str):
+    """Wrap `root.backward()` (which blocks until the backward has ended) in
+    the span `name`, and while a profiler records:
+
+    - the spans opened inside, on any thread, end in `.backward`;
+    - the autograd engine runs a CUDA graph on a thread of its own, whose
+      launches would fall in no span of this thread: a hook on `root`, the
+      backward's first node, opens `name` there too, and a final callback
+      of the engine, run by the thread that finishes the backward, closes
+      it. A backward the calling thread runs itself (a CPU graph) needs no
+      second span.
+
+    Registers nothing while no profiler records."""
+    global _suffix
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
+    caller = threading.get_ident()
+
+    def enter(grad):
+        if threading.get_ident() == caller:
+            return
+        rf = torch.profiler.record_function(name)
+        rf.__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: rf.__exit__(None, None, None))
+
+    with torch.profiler.record_function(name):
+        handle = root.register_hook(enter)
+        _suffix = ".backward"
+        try:
+            yield
+        finally:
+            _suffix = ""
+            handle.remove()
 
 
 @contextlib.contextmanager
