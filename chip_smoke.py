@@ -9,6 +9,8 @@ one NVIDIA GPU.
         # + K2 and K6 timed beside an unpacked checkout of another commit
         #   (scripts/time_assoc_grad.py on both trees in turns): `ms_parent`
         #   beside `ms_this_tree`, the medians of the same turns
+    python3 chip_smoke.py --only-sinkhorn
+        # phases 1, 2 and 35 only, and the Sinkhorn kernels' JSON line
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -193,6 +195,17 @@ Phases (each prints its own lines; any failure exits non-zero):
               profiler's), its first batch card against CPU (TF32 off)
  34. caps     K1's slot-cap sweep (scripts/time_univ_v3.py, caps 8 / 16 /
               24, n = 600, C = 16, bf16 X) against the plain version
+ 35. sinkhorn the masked Sinkhorn's kernels (kernels.sinkhorn: forward, and
+              backward through autograd) against the plain ops
+              (ops.sinkhorn.sinkhorn_batch_plain) at B = 512, S = 64, 40-64
+              valid rows and columns, tau 0.01, 20 and 10 sweeps: errors,
+              CUDA-event medians of 20 calls behind an L2 flush, the
+              kernels alone by torch.profiler, the byte bound; then the
+              three benchmark cells' configurations (perfbench's
+              resnet18.eval-n64, vgg16bn.eval-n64, resnet18.train-s3, one
+              batch each at the cell's batch size): every Sinkhorn call
+              there must take the kernels (engagement 100 %: forward
+              launches over forward launches plus plain calls)
 
 Phase 15 also times K6's library call, torch.sparse.sampled_addmm of dY and
 X over K's nonzero pattern (cuSPARSE's SDDMM: dKe and dKp at once).
@@ -245,6 +258,7 @@ from fpmatch_tpu_torch.kernels import assoc_grad as k6
 from fpmatch_tpu_torch.kernels import assoc_univ as k4
 from fpmatch_tpu_torch.kernels import assoc_univ_v3 as k1
 from fpmatch_tpu_torch.kernels import inoculate as k5
+from fpmatch_tpu_torch.kernels import sinkhorn as k_sk
 from fpmatch_tpu_torch.data.synthetic import synthetic_pair_batch
 from fpmatch_tpu_torch.models import backbone as t_backbone
 from fpmatch_tpu_torch.models import ngm as t_ngm
@@ -256,6 +270,7 @@ from fpmatch_tpu_torch.ops.assoc import (CHUNKED_NNZ_THRESHOLD, assoc_dense,
                                          assoc_matvec, assoc_matvec_chunked,
                                          assoc_matvec_fused)
 from fpmatch_tpu_torch.ops.hungarian import hungarian_host
+from fpmatch_tpu_torch.ops import sinkhorn as ops_sk
 from fpmatch_tpu_torch.ops.qap import qap_objective, qap_power_sinkhorn
 from fpmatch_tpu_torch.ops.soft_topk import greedy_perm
 from fpmatch_tpu_torch.poredet import architectures as pd_arch
@@ -299,7 +314,13 @@ def fail(msg):
     sys.exit(1)
 
 
-COUNTS = (k1.LAUNCHES, k23.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES, k6.LAUNCHES)
+COUNTS = (k1.LAUNCHES, k23.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES, k6.LAUNCHES,
+          k_sk.LAUNCHES, ops_sk.PLAIN_CALLS)
+# what each phase's launch checks read: the association kernels' and K5's
+# counts; the Sinkhorn's (its kernels' launches and the plain calls) are
+# phase 35's
+ASSOC_COUNTS = COUNTS[:5]
+SINKHORN_COUNTS = COUNTS[5:]
 
 
 def reset_counts():
@@ -309,15 +330,17 @@ def reset_counts():
             counts[k] = 0
 
 
-def read_counts():
-    return {k: v for counts in COUNTS for k, v in counts.items()}
+def read_counts(counts=ASSOC_COUNTS):
+    return {k: v for c in counts for k, v in c.items()}
 
 
 def restore_counts(saved):
-    """Launches made to compare or to profile do not count."""
+    """Launches made to compare or to profile do not count (the counts that
+    `saved` holds)."""
     for counts in COUNTS:
         for k in counts:
-            counts[k] = saved[k]
+            if k in saved:
+                counts[k] = saved[k]
 
 
 def sh(cmd):
@@ -4419,6 +4442,123 @@ def phase_tools(tmp):
     return out
 
 
+# --------------------------------------------------------------- 35 sinkhorn
+SK_CELLS = ("resnet18.eval-n64", "vgg16bn.eval-n64", "resnet18.train-s3")
+
+
+def sinkhorn_inputs(B, S, seed=SEED):
+    """Scores, an upstream gradient and counts of 40..S valid rows and
+    columns (the eval-n64 traffic's crops: both orientations, a live dummy
+    band), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    s = torch.randn(B, S, S, generator=g).to(DEV)
+    dy = torch.randn(B, S, S, generator=g).to(DEV)
+    n1 = torch.randint(40, S + 1, (B,), generator=g).to(DEV)
+    n2 = torch.randint(40, S + 1, (B,), generator=g).to(DEV)
+    return s, dy, n1, n2
+
+
+def sinkhorn_rows(flush):
+    """The kernels against the plain ops at the main path's shape (B = 512,
+    S = 64, tau 0.01) with 20 and 10 sweeps, forward and backward: errors
+    (forward: 2e-5 absolute; backward: 5e-5 of the plain gradient's range,
+    tests/test_torch_sinkhorn_kernel.py's limits), CUDA-event medians of 20
+    calls behind an L2 flush (the backward through autograd.grad, which
+    launches the backward kernel alone), the kernels alone by torch.profiler
+    and the bound: each direction reads and writes B S^2 floats (the
+    backward reads two arrays)."""
+    B, S, tau = 512, 64, 0.01
+    s, dy, n1, n2 = sinkhorn_inputs(B, S)
+    n = B * S * S
+    rows = []
+    for iters in (20, 10):
+        kw = dict(tau=tau, max_iter=iters)
+        x = s.clone().requires_grad_(True)
+        xp = s.clone().requires_grad_(True)
+        out = k_sk.sinkhorn_kernel(x, n1, n2, **kw)
+        want = ops_sk.sinkhorn_batch_plain(xp, n1, n2, **kw)
+        bwd = lambda: torch.autograd.grad(out, x, dy, retain_graph=True)[0]
+        bwd_plain = lambda: torch.autograd.grad(want, xp, dy,
+                                                retain_graph=True)[0]
+        cases = (
+            ("forward", out.detach(), want.detach(),
+             lambda: k_sk.sinkhorn_kernel(s, n1, n2, **kw),
+             lambda: ops_sk.sinkhorn_batch_plain(s, n1, n2, **kw),
+             "sinkhorn_fwd_kernel", 2 * 4 * n, (5 * iters + 1) * n),
+            ("backward", bwd(), bwd_plain(), bwd, bwd_plain,
+             "sinkhorn_bwd_kernel", 3 * 4 * n, 10 * iters * n))
+        for dirn, got, ref, call, plain, key, nbytes, flops in cases:
+            torch.cuda.synchronize()
+            r = {"dir": dirn, "B": B, "S": S, "iters": iters, "tau": tau,
+                 "max_abs_err": float((got - ref).abs().max()),
+                 "err_vs_plain": relerr(got, ref),
+                 "ms": time_ms(call, flush=flush),
+                 "plain_ms": time_ms(plain, flush=flush),
+                 "kernel_ms": tune_univ.profiled_ms(call, key, flush=flush),
+                 "library_ms": None, "bytes": nbytes, "flops": flops,
+                 **bound(nbytes, flops)}
+            say("[35 sinkhorn] " + json.dumps(r))
+            if not (r["max_abs_err"] <= 2e-5 if dirn == "forward"
+                    else r["err_vs_plain"] <= 5e-5):
+                fail(f"35: the Sinkhorn kernel's {dirn} ({iters} sweeps) "
+                     f"is off the plain ops: {r}")
+            rows.append(r)
+    return rows
+
+
+def sinkhorn_engagement():
+    """One batch of each benchmark cell's configuration and traffic (the
+    harness's own model, weights and generator, at the cell's batch size):
+    an evaluate_loader batch for the eval cells, a train step for the train
+    cell. Every Sinkhorn call must launch the forward kernel (and the train
+    step the backward one): no plain call."""
+    from perfbench import harness
+    from perfbench.traffic.generator import make_pool
+
+    rows = {}
+    for name in SK_CELLS:
+        cell = harness.load_cell(name)
+        traffic, B = cell.traffic, cell.spec["batch"]
+        cfg = harness.port_config(cell.config, traffic)
+        model = build_model(cfg, device="cuda", state_dict=harness.make_weights(
+            harness.model_shapes(cfg), SEED, DEV))
+        batch = t_ngm.PairBatch(**make_pool(dict(traffic, pool=1), B, SEED,
+                                            DEV)[0])
+        train = traffic["task"] == "train"
+        reset_counts()
+        if train:
+            stage = default_stages()[traffic["stage"] - 1]
+            make_train_step(model, stage)(create_state(model, stage), batch)
+        else:
+            cli_evaluate.evaluate_loader(model, [batch],
+                                         score=traffic["score"],
+                                         discretize=traffic["discretize"])
+        torch.cuda.synchronize()
+        c = read_counts(SINKHORN_COUNTS)
+        calls = c["sinkhorn_fwd"] + c["sinkhorn_plain"]
+        rows[name] = dict(c, batch=B, engagement_pct=100.0 * c[
+            "sinkhorn_fwd"] / max(calls, 1))
+        say(f"[35 sinkhorn] {name} (B = {B}): {rows[name]}")
+        if not c["sinkhorn_fwd"] or c["sinkhorn_plain"] or (
+                train and not c["sinkhorn_bwd"]):
+            fail(f"35: {name}: a Sinkhorn call took the plain ops or no "
+                 f"kernel ran: {c}")
+        del model, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sinkhorn():
+    """35: returns (timed rows, engagement by cell)."""
+    t = time.time()
+    saved = read_counts(COUNTS)
+    rows = sinkhorn_rows(tune_univ.l2_flush(DEV))
+    restore_counts(saved)
+    engagement = sinkhorn_engagement()
+    say(f"[35 sinkhorn] {time.time() - t:.1f} s")
+    return rows, engagement
+
+
 def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
     """One entry of the `kernels` JSON line: the numbers of the timed row
     `pick` selects, the worst errors over all rows (K4's bf16-X rows, held
@@ -4439,6 +4579,20 @@ def kernel_entry(name, source, rows, launches, replaces, pick, shape_keys):
         "shapes": [{k: r.get(k) for k in shape_keys} for r in timed]}
 
 
+def sinkhorn_entry(rows, engagement):
+    """The Sinkhorn kernels' entry of the `kernels` line: the forward at 20
+    sweeps as its main row; launches of one batch (a step) of each
+    benchmark cell's configuration, and their engagement."""
+    keys = ("dir", "B", "S", "iters", "ms", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "bytes", "flops")
+    entry = kernel_entry("sinkhorn", k_sk.SOURCE, rows,
+                         engagement[SK_CELLS[0]]["sinkhorn_fwd"],
+                         k_sk.REPLACES, lambda r: (r["dir"], r["iters"]) ==
+                         ("forward", 20), keys)
+    entry["launches_cells"] = engagement
+    return entry
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     card = phase_device()
@@ -4450,6 +4604,14 @@ def main():
         say("[1 device] matplotlib not installed: cli.evaluate's plots "
             "cannot be drawn here (not on the device path)")
     row5 = phase_build()
+    if "--only-sinkhorn" in sys.argv[1:]:
+        rows35, engagement35 = phase_sinkhorn()
+        say(json.dumps({"kernels": [sinkhorn_entry(rows35, engagement35)]}))
+        say(card)
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     rows1 = phase_kernels()
     rows23, plan_ms, wide = phase_kernels_bucket()
     rows4 = phase_kernels_univ()
@@ -4511,6 +4673,7 @@ def main():
         poredet28 = phase_train_poredet(tmp)
         qap29 = phase_qap_layers(f"{tmp}/bucket")
         tools = phase_tools(tmp)
+        rows35, engagement35 = phase_sinkhorn()
     parent = (phase_parent_timing(Path(sys.argv[sys.argv.index("--parent")
                                                  + 1]).resolve())
               if "--parent" in sys.argv[1:] else None)
@@ -4684,6 +4847,7 @@ def main():
         {k: r[k] for k in ("r1", "r2", "prec", "b1", "b2", "spill", "ms",
                            "kernel_ms", "edges_per_s", "err_vs_plain")}
         for r in rows10]
+    kernels["kernels"].append(sinkhorn_entry(rows35, engagement35))
     say(json.dumps(kernels))
     # the slice of bare-image serving and Hungarian discretization: host
     # work around the kernels above (no kernel of its own)
