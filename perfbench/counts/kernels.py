@@ -12,6 +12,9 @@ HBM bandwidth and operations / the float32 peak outside the tensor cores
   * K2 (`assoc_bucket_kernel`, the forward K^T vec(X) at bucket scale):
     Ke (e1 e2), X and Y (n1 n2 C each), Kp (n1 n2), and for each graph its
     edges' two endpoints;
+  * K3 (`assoc_large_kernel`, the same product at the scale where the
+    association edges reach a million): the same valid work as K2, whatever
+    implements it;
   * K6 (`assoc_grad_kernel`, dKe and dKp of the same product): dY and X
     read (n1 n2 C each), dKe (e1 e2) and dKp (n1 n2) written, each graph's
     edge endpoints read and its edge mask (1 byte an edge slot) read, the
@@ -38,6 +41,12 @@ def k2_work(n_nodes, n_edges, C: int):
     cells, assoc, edges = _sums(n_nodes, n_edges)
     nbytes = 4 * (assoc + 2 * cells * C + cells) + 4 * 2 * edges
     return nbytes, 2.0 * C * (assoc + cells)
+
+
+def k3_work(n_nodes, n_edges, C: int):
+    """(bytes, operations) of one K3 launch over a batch at C channels:
+    those of `k2_work`, the same product's valid work."""
+    return k2_work(n_nodes, n_edges, C)
 
 
 def k6_work(n_nodes, n_edges, C: int):

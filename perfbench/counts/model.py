@@ -10,6 +10,18 @@ width); each association-GNN layer's K^T contraction (C (e1 e2 + n1 n2))
 and its dense layers over the n1 x n2 valid cells; the final score layer;
 AFA-U's projections, attention products and score-mixing MLP over the
 valid rows and columns; the match classifier's two convolutions.
+
+Where the configuration sets `ngm.hyperedge`, from each view's valid
+triangle count t1, t2 (and 0 otherwise):
+  * the triangle affinity: each triangle's three corner-angle cosines (six
+    F-wide dot products, 12 F), the gate (2 gdim 3) and the product over
+    t1 x t2 at width 3 (2 3 t1 t2);
+  * each association-GNN layer's triangle contraction, `assoc_tri_matvec`'s
+    Y[a1, a2] += Kt[t1, t2] (X[b1, b2] + X[c1, c2]) / 2 over three corner
+    rotations: a channel's add of the two partners and multiply-add by
+    Kt / 2, 3 FLOPs, for each rotation, triangle pair and input channel C:
+    9 C t1 t2 (the halving folded into Kt once a pair);
+  * each layer's `lin_t` over the n1 x n2 valid cells (2 n1 n2 C out).
 Not counted: elementwise work, normalizations, pooling, Sinkhorn, soft
 top-k and the greedy fill (`PERF.md` says so). A training step counts 3x
 the forward: the backward is twice the forward of the live partitions,
@@ -61,8 +73,11 @@ def backbone_flops(cfg: dict, image_hw) -> float:
     raise ValueError(f"no FLOP count for backbone {bb['kind']!r}")
 
 
-def graph_flops(cfg: dict, n1: int, n2: int, e1: int, e2: int) -> float:
-    """FLOPs of everything after the backbone for one pair."""
+def graph_flops(cfg: dict, n1: int, n2: int, e1: int, e2: int,
+                t1: int = 0, t2: int = 0) -> float:
+    """FLOPs of everything after the backbone for one pair (t1, t2: its
+    views' triangle counts, read where the configuration sets
+    `ngm.hyperedge`)."""
     ngm = cfg["ngm"]
     F = ngm["node_feature_dim"]
     bb = cfg["backbone"]
@@ -73,11 +88,18 @@ def graph_flops(cfg: dict, n1: int, n2: int, e1: int, e2: int) -> float:
         f += ngm["spline_layers"] * 2.0 * F * F * (4 * e + n)
     f += 2 * 2.0 * gdim * F                       # the two gates
     f += 2.0 * F * (n1 * n2 + e1 * e2)            # Kp, Ke
+    hyper = ngm.get("hyperedge", False)
+    if hyper:
+        f += 12.0 * F * (t1 + t2)                 # corner-angle cosines
+        f += 2.0 * gdim * 3 + 2.0 * 3 * t1 * t2   # Kt
     cells = n1 * n2
     c_in = 1
     for out in ngm["gnn_feat"]:
         f += 2.0 * c_in * (e1 * e2 + cells)       # K^T vec(X)
         f += 2.0 * cells * (3 * c_in * out + out * out + out * ngm["sk_emb"])
+        if hyper:
+            f += 9.0 * c_in * t1 * t2             # triangle contraction
+            f += 2.0 * cells * c_in * out         # lin_t
         c_in = out + ngm["sk_emb"]
     f += 2.0 * cells * c_in                       # final scores
     # AFA-U: two encoder sides over the valid rows / columns
@@ -97,16 +119,20 @@ def graph_flops(cfg: dict, n1: int, n2: int, e1: int, e2: int) -> float:
     return f
 
 
-def pair_flops(cfg: dict, image_hw, n1, n2, e1, e2) -> float:
+def pair_flops(cfg: dict, image_hw, n1, n2, e1, e2, t1=0, t2=0) -> float:
     """Forward FLOPs of one pair (two images)."""
-    return 2 * backbone_flops(cfg, image_hw) + graph_flops(cfg, n1, n2, e1,
-                                                           e2)
+    return 2 * backbone_flops(cfg, image_hw) + graph_flops(
+        cfg, n1, n2, e1, e2, t1, t2)
 
 
-def batch_flops(cfg: dict, image_hw, n_nodes, n_edges) -> float:
-    """Forward FLOPs of a batch, from its (B, 2) node and edge counts."""
+def batch_flops(cfg: dict, image_hw, n_nodes, n_edges, n_tris=None) -> float:
+    """Forward FLOPs of a batch, from its (B, 2) node, edge and (where the
+    traffic brings triangles) triangle counts."""
+    if n_tris is None:
+        n_tris = [(0, 0)] * len(n_nodes)
     return sum(pair_flops(cfg, image_hw, int(a[0]), int(a[1]), int(b[0]),
-                          int(b[1])) for a, b in zip(n_nodes, n_edges))
+                          int(b[1]), int(t[0]), int(t[1]))
+               for a, b, t in zip(n_nodes, n_edges, n_tris))
 
 
 TRAIN_FACTOR = 3.0      # forward + backward (2x the forward) of a step

@@ -6,7 +6,11 @@ A cell is found by name: `BENCHMARK.json`'s `workloads` entry names its
 configuration (`configs/<config>.json`) and traffic (`traffic/<traffic>.json`),
 and `workloads/<cell>.json` holds what is the cell's own (its batch, the
 limits of its comparison). The traffic's `task` picks the driver in
-`tasks/`. Per-layer metrics are read by `metrics/<metric>.py`.
+`tasks/`; a traffic that sets `t_max` brings each view's triangles
+(`tri`, `n_tris`) and the program's triangle slots. Per-layer metrics are
+read by `metrics/<metric>.py`. A configuration may bring its own plain
+reference, `reference/<config>.py`; without one it is judged by
+`reference/model.py`.
 """
 from __future__ import annotations
 
@@ -92,9 +96,28 @@ def metric_reader(name: str):
     return mod
 
 
+def reference_module(cell: Cell):
+    """The plain reference that judges `cell`: `reference/<config>.py`,
+    loaded by path, where the cell's configuration has one, else
+    `reference/model.py`. A configuration's reference offers the functions
+    of `model.py` that the drivers call (`forward`, `classify`,
+    `soft_topk`, `permutation_loss`, `no_tf32`), and may import them from
+    there."""
+    path = HERE / "reference" / f"{cell.entry['config']}.py"
+    if not path.is_file():
+        from .reference import model
+        return model
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_reference_" + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def port_config(config: dict, traffic: dict):
     """The program's `Config` for a configuration file and a traffic file
-    (the shape buckets are the traffic's)."""
+    (the shape buckets are the traffic's: `n_max`, `e_max` and, where it
+    sets one, `t_max`)."""
     from fpmatch_tpu_torch.core.config import (BackboneConfig, Config,
                                                DataConfig, NGMConfig,
                                                ShapeConfig)
@@ -104,13 +127,23 @@ def port_config(config: dict, traffic: dict):
         return cls(**{k: tuple(v) if isinstance(v, list) else v
                       for k, v in values.items() if k in names})
 
+    buckets = {k: traffic[k] for k in ("n_max", "e_max", "t_max")
+               if k in traffic}
     return Config(
-        shapes=make(ShapeConfig, dict(config["shapes"],
-                                      n_max=traffic["n_max"],
-                                      e_max=traffic["e_max"])),
+        shapes=make(ShapeConfig, dict(config["shapes"], **buckets)),
         backbone=make(BackboneConfig, config["backbone"]),
         ngm=make(NGMConfig, config["ngm"]),
         data=make(DataConfig, config["data"]))
+
+
+def window_batches(pool, runs) -> list:
+    """A driver's `work["batches"]`: for each pool slot, how many times the
+    window ran it (`runs`) and its (B, 2) `n_nodes`, `n_edges` and, where
+    the traffic brings triangles, `n_tris`, as numpy arrays: what a reader
+    needs to count a kernel's work with a counts function of its own."""
+    keys = ("n_nodes", "n_edges", "n_tris")
+    return [dict(runs=n, **{k: b[k].cpu().numpy() for k in keys if k in b})
+            for n, b in zip(runs, pool)]
 
 
 def make_weights(shapes, seed: int, device) -> dict:

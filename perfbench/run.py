@@ -26,16 +26,24 @@ Everything is found by name, so a later change adds files and edits none:
 
   * a configuration: `perfbench/configs/<name>.json` (the program's
     `Config` fields, its source, `reduced`, `assumed`), listed under
-    `configs` in `BENCHMARK.json`;
+    `configs` in `BENCHMARK.json`; its own plain reference, where it brings
+    one, `perfbench/reference/<name>.py` (the functions of
+    `perfbench/reference/model.py`, which judges a configuration without
+    one);
   * a traffic mix: `perfbench/traffic/<name>.json`, parameters read by the
     one generator `perfbench/traffic/generator.py`; its `task` picks the
-    driver `perfbench/tasks/<task>.py` (`evaluate`, `train`);
+    driver `perfbench/tasks/<task>.py` (`evaluate`, `train`); a `t_max`
+    brings each view's Delaunay triangles (`tri`, `n_tris`) to the program
+    and the reference, and sets the program's triangle slots;
   * a cell: an entry under `workloads` in `BENCHMARK.json` and
     `perfbench/workloads/<cell>.json` (its batch, the reference's block,
     the limits of its comparison);
   * a per-layer metric: an entry under `per_layer` and a reader
     `perfbench/metrics/<metric>.py` (`LAYER`, `MOVES`, `UNIT`, `read(ctx)`
-    returning a number or None).
+    returning a number or None); `ctx["work"]["batches"]` lists each pool
+    batch the window ran, how often, and its node, edge and triangle
+    counts, from which a reader in a file of its own counts a kernel's
+    work.
 
 `run_seconds` and every end-to-end metric's `bound` live in
 `BENCHMARK.json`; the comparison's limits in each cell's file. The CPU

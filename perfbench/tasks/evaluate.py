@@ -10,7 +10,8 @@ and the window closes when it returns, its `verification_metrics`
 included. The program's data loader (workers, pinned memory, the copy to
 the card) is not in the window: the batches are on the card already.
 
-Afterwards the reference runs on every batch of the pool and judges the
+Afterwards the reference (the configuration's own,
+`harness.reference_module`) runs on every batch of the pool and judges the
 window's outputs (`perfbench/compare.py`).
 """
 from __future__ import annotations
@@ -23,7 +24,6 @@ import numpy as np
 from .. import compare, harness
 from ..counts import kernels as kcount
 from ..counts import model as mcount
-from ..reference import model as ref
 from ..traffic.generator import make_pool
 
 
@@ -70,8 +70,9 @@ class Keeper:
                                   ("ds_mat", "perm_mat", "k_prob")}
 
 
-def reference_outputs(weights, config, batch, block: int):
-    """The reference on one batch, in blocks of `block` pairs."""
+def reference_outputs(ref, weights, config, batch, block: int):
+    """The reference module `ref` on one batch, in blocks of `block`
+    pairs."""
     import torch
 
     B = batch["label"].shape[0]
@@ -131,7 +132,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
         ranges = tr.Ranges(model, "ngm")
         try:
             red = tr.profiled_window(window, lambda: {
-                "assoc_bucket_kernel": assoc_bucket.LAUNCHES["assoc_bucket"]})
+                "assoc_bucket_kernel": assoc_bucket.LAUNCHES["assoc_bucket"],
+                "assoc_large_kernel": assoc_bucket.LAUNCHES["assoc_large"]})
         finally:
             ranges.close()
         pairs, wall = red["pairs"], red["window_s"]
@@ -146,13 +148,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     n_slot = [slots.count(i) for i in range(len(batches))]
 
     # the work the window did, from the batches' own counts
-    counts = [(b["n_nodes"].cpu().numpy(), b["n_edges"].cpu().numpy())
-              for b in pool]
-    flops = sum(n * mcount.batch_flops(cell.config, traffic["image_hw"], *c)
-                for n, c in zip(n_slot, counts))
-    k2_bound = sum(n * sum(kcount.bound_s(*kcount.k2_work(*c, C))
-                           for C in kcount.layer_channels(cell.config))
-                   for n, c in zip(n_slot, counts))
+    batches_run = harness.window_batches(pool, n_slot)
+    flops = sum(b["runs"] * mcount.batch_flops(
+        cell.config, traffic["image_hw"], b["n_nodes"], b["n_edges"],
+        b.get("n_tris")) for b in batches_run)
+    bounds = {kernel: sum(b["runs"] * sum(
+        kcount.bound_s(*work(b["n_nodes"], b["n_edges"], C))
+        for C in kcount.layer_channels(cell.config)) for b in batches_run)
+        for kernel, work in (("assoc_bucket_kernel", kcount.k2_work),
+                             ("assoc_large_kernel", kcount.k3_work))}
 
     # free the program's state before the reference runs
     del model, window
@@ -167,8 +171,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     return {"attempted": pairs, "failed": failed, "setup_s": setup_s,
             "e2e": {"pairs_per_s": pairs / wall, "setup_s": setup_s},
             "numbers": numbers, "memory_peak": memory_peak, "trace": red,
-            "work": {"pairs": pairs, "flops": flops,
-                     "kernel_bound_s": {"assoc_bucket_kernel": k2_bound}}}
+            "work": {"pairs": pairs, "flops": flops, "kernel_bound_s": bounds,
+                     "batches": batches_run}}
 
 
 def judge(cell, weights, pool, slots, res, keeper, seed):
@@ -179,14 +183,15 @@ def judge(cell, weights, pool, slots, res, keeper, seed):
     import torch
 
     spec = cell.spec
+    ref = harness.reference_module(cell)
     B = spec["batch"]
     n_ref = min(B, spec["reference_pairs"])
     rng = np.random.default_rng(seed)
     rows = [torch.as_tensor(np.sort(rng.choice(B, n_ref, replace=False)),
                             device=pool[0]["label"].device) for _ in pool]
     subs = [{k: v[r] for k, v in b.items()} for b, r in zip(pool, rows)]
-    own = [reference_outputs(weights, cell.config, sb, spec["reference_block"])
-           for sb in subs]
+    own = [reference_outputs(ref, weights, cell.config, sb,
+                             spec["reference_block"]) for sb in subs]
     k_prog = torch.as_tensor(res["k_probs"]).reshape(-1, B)
     cls_prog = torch.as_tensor(res["cls_scores"]).reshape(-1, B)
     k_gap = torch.zeros(len(slots), n_ref)

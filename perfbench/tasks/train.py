@@ -16,7 +16,8 @@ multi-tensor copy into buffers made at set-up); the host enqueues the
 steps without waiting and the window closes when the card has finished the
 last one.
 
-Afterwards the reference follows both stretches on the same batches and
+Afterwards the reference (the configuration's own,
+`harness.reference_module`) follows both stretches on the same batches and
 judges them (`perfbench/compare.py`): the first three steps from the
 seed's weights, and the window's first two steps from the copied state.
 """
@@ -28,7 +29,6 @@ import time
 from .. import compare, harness
 from ..counts import kernels as kcount
 from ..counts import model as mcount
-from ..reference import model as ref
 from ..traffic.generator import make_pool
 
 CHECKED_STEPS = 3
@@ -154,11 +154,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     # the work of the window's steps, from the batches' own counts
     first = done - steps
     slots = [(first + i) % len(batches) for i in range(steps)]
-    counts = [(b["n_nodes"].cpu().numpy(), b["n_edges"].cpu().numpy())
-              for b in pool]
+    batches_run = harness.window_batches(
+        pool, [slots.count(i) for i in range(len(pool))])
+    counts = [(b["n_nodes"], b["n_edges"]) for b in batches_run]
     flops = mcount.TRAIN_FACTOR * sum(
-        mcount.batch_flops(cell.config, traffic["image_hw"], *counts[s])
-        for s in slots)
+        mcount.batch_flops(cell.config, traffic["image_hw"], *counts[s],
+                           batches_run[s].get("n_tris")) for s in slots)
     k6_bound = sum(kcount.bound_s(*kcount.k6_work(*counts[s], C))
                    for s in slots for C in kcount.layer_channels(cell.config))
 
@@ -172,11 +173,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    zero = zero_leaves(weights, cell.config, traffic, pool[0])
-    numbers = judge(cell, {"weights": weights}, pool[:CHECKED_STEPS], losses,
-                    maps, first_grad, after, CHECKED_STEPS, zero)
+    ref = harness.reference_module(cell)
+    zero = zero_leaves(ref, weights, cell.config, traffic, pool[0])
+    numbers = judge(ref, cell, {"weights": weights}, pool[:CHECKED_STEPS],
+                    losses, maps, first_grad, after, CHECKED_STEPS, zero)
     numbers.update({f"window_{k}": v for k, v in judge(
-        cell, start, window_batches, window_losses, window_maps, None,
+        ref, cell, start, window_batches, window_losses, window_maps, None,
         window_after, WINDOW_CHANGE_AFTER, zero).items()})
     numbers["zero_leaves"] = zero
     numbers["reference_s"] = time.perf_counter() - t
@@ -187,7 +189,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
             "e2e": {"train_pairs_per_s": pairs / wall, "setup_s": setup_s},
             "numbers": numbers, "memory_peak": memory_peak, "trace": red,
             "work": {"pairs": pairs, "steps": steps, "flops": flops,
-                     "kernel_bound_s": {"assoc_grad_kernel": k6_bound}}}
+                     "kernel_bound_s": {"assoc_grad_kernel": k6_bound},
+                     "batches": batches_run}}
 
 
 def first_moment(optimizer, names) -> dict:
@@ -215,13 +218,14 @@ def snapshot(model, optimizer, names) -> dict:
                 "step": {n: int(s["step"]) for n, s in state.items()}}
 
 
-def reference_steps(start, config, traffic, batches, change_after=None):
-    """The reference's steps from `start` (`snapshot`'s keys; a leaf
-    without moments takes AdamW's first step) over `batches`: the stage's loss terms,
-    its gradient by autograd, AdamW (decoupled weight decay) at the stage's
-    learning rate per partition. Returns (losses, each step's `ds_mat`, the
-    first step's gradient, parameters after `change_after` steps, by
-    default all)."""
+def reference_steps(ref, start, config, traffic, batches,
+                    change_after=None):
+    """The reference module `ref`'s steps from `start` (`snapshot`'s keys;
+    a leaf without moments takes AdamW's first step) over `batches`: the
+    stage's loss terms, its gradient by autograd, AdamW (decoupled weight
+    decay) at the stage's learning rate per partition. Returns (losses,
+    each step's `ds_mat`, the first step's gradient, parameters after
+    `change_after` steps, by default all)."""
     import torch
 
     opt = traffic["optimizer"]
@@ -271,7 +275,7 @@ def reference_steps(start, config, traffic, batches, change_after=None):
     return losses, maps, first, kept
 
 
-def zero_leaves(weights, config, traffic, batch) -> list:
+def zero_leaves(ref, weights, config, traffic, batch) -> list:
     """The leaves whose gradient is nought but for rounding: the reference's
     first gradient worked out in float64 (on `weights` and the first
     `ZERO_PAIRS` pairs of `batch`; the whole batch does not fit on the card
@@ -287,8 +291,9 @@ def zero_leaves(weights, config, traffic, batch) -> list:
     torch.set_default_dtype(torch.float64)
     try:
         _, _, grad, _ = reference_steps(
-            {"weights": {n: wide(t) for n, t in weights.items()}}, config,
-            traffic, [{k: wide(v[:ZERO_PAIRS]) for k, v in batch.items()}])
+            ref, {"weights": {n: wide(t) for n, t in weights.items()}},
+            config, traffic,
+            [{k: wide(v[:ZERO_PAIRS]) for k, v in batch.items()}])
     finally:
         torch.set_default_dtype(old)
     norms = {n: float(torch.linalg.vector_norm(g)) for n, g in grad.items()}
@@ -296,16 +301,17 @@ def zero_leaves(weights, config, traffic, batch) -> list:
     return sorted(n for n, x in norms.items() if x < NEGLIGIBLE * med)
 
 
-def judge(cell, start, batches, losses, maps, first_grad, after,
+def judge(ref, cell, start, batches, losses, maps, first_grad, after,
           change_after, zero=()):
     """A stretch of the program's steps from `start` over `batches` against
-    the reference's: `compare`'s numbers. `first_grad` None: the stretch's
-    first gradient is not compared; `after` holds the parameters after
-    `change_after` steps; the leaves in `zero` are left out of the change."""
+    the reference module `ref`'s: `compare`'s numbers. `first_grad` None:
+    the stretch's first gradient is not compared; `after` holds the
+    parameters after `change_after` steps; the leaves in `zero` are left
+    out of the change."""
     import torch
 
     ref_losses, ref_maps, ref_grad, ref_after = reference_steps(
-        start, cell.config, cell.traffic, batches, change_after)
+        ref, start, cell.config, cell.traffic, batches, change_after)
     weights = start["weights"]
     numbers = {}
     for key, name in (("total_loss", "loss_gap"), ("loss", "perm_loss_gap"),

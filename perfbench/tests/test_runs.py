@@ -90,6 +90,23 @@ def test_eval_faults_are_not_correct(monkeypatch, how):
         assert pick["value"] > pick["limit"], pick
 
 
+def test_eval_n256_control_is_not_correct():
+    """The n256 cell's own limits (no `cls_gap`) under the control."""
+    line = run_cell("resnet18.eval-n256", control="bf16")
+    assert "cls_gap" not in line["checks"]
+    assert line["correct"] is False, line["checks"]
+
+
+@pytest.mark.parametrize("how", ["altered", "half", "pick"])
+def test_eval_n256_faults_are_not_correct(monkeypatch, how):
+    altered_eval_step(monkeypatch, how)
+    line = run_cell("resnet18.eval-n256", batch=4)
+    assert line["correct"] is False, line["checks"]
+    if how == "pick":
+        pick = line["checks"]["pick_gap_p99"]
+        assert pick["value"] > pick["limit"], pick
+
+
 def test_train_state_unchanged_is_not_correct(monkeypatch):
     monkeypatch.setattr(torch.optim.AdamW, "step",
                         lambda self, closure=None: None)
@@ -148,15 +165,16 @@ def test_train_window_faults_are_not_correct(monkeypatch, how):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["resnet18.eval-n64", "vgg16bn.eval-n64",
-                                  "resnet18.train-s3"])
+                                  "resnet18.train-s3", "resnet18.eval-n256"])
 def test_cells_on_the_card(card, name):
     """The real cells at their own size: correct as they are, not correct
-    under the program's bfloat16 path and, in the eval cells, under its
-    float32 matmuls in TF32 (on some seeds the training cell's numbers read
-    as far from the configuration's own TF32 convolutions: `PERF.md` §6)."""
+    under the program's bfloat16 path and, in the n64 eval cells, under its
+    float32 matmuls in TF32 (on some seeds the training cell's and the n256
+    cell's numbers read as far from the configuration's own TF32
+    convolutions: `PERF.md` §6)."""
     ok = run.run_once(name, SEED, 3.0, False, device=card)
     assert ok["correct"] is True, ok["checks"]
-    controls = ("bf16", "tf32") if "eval" in name else ("bf16",)
+    controls = ("bf16", "tf32") if name.endswith("eval-n64") else ("bf16",)
     for i, control in enumerate(controls, start=1):
         ctl = run.run_once(name, SEED + i, 3.0, False, control=control,
                            device=card)

@@ -7,10 +7,14 @@ numbers in the order of the JAX package's): random keypoint clouds,
 jittered genuine views with identity ground truth, impostor views with
 independent clouds and a zero permutation, Delaunay edges in both
 directions. It returns a dict of numpy arrays with the fields of the
-program's `PairBatch`. With `host_images=False` the image noise is not
-drawn on the host (the graphs then come from the generator's stream
-without the image draw first); `device_images` draws it on the card
-instead, which is how a run makes its batches.
+program's `PairBatch`. A traffic that sets `t_max` brings triangles: each
+view's Delaunay simplices (`tri`, in scipy's order, padded slots 0) and
+their count (`n_tris`), worked out from the same points after the same
+random calls, so that every other array is the same bit for bit; a
+traffic without it gives no triangle keys. With `host_images=False` the
+image noise is not drawn on the host (the graphs then come from the
+generator's stream without the image draw first); `device_images` draws it
+on the card instead, which is how a run makes its batches.
 """
 from __future__ import annotations
 
@@ -26,22 +30,31 @@ FIELDS = ("images", "points", "n_nodes", "src", "dst", "n_edges", "gt_perm",
           "label", "gt_k")
 
 
-def delaunay_edges(P: np.ndarray):
-    """Directed Delaunay edges of the point set P (n, 2), both directions,
-    in row-major order of the adjacency matrix; the complete graph where
-    the triangulation is degenerate (fewer than 3 points, collinear)."""
-    n = P.shape[0]
-    A = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
-    if n >= 3:
-        try:
-            simp = Delaunay(P).simplices
-            A = np.zeros((n, n), np.float32)
-            for i in range(3):
-                for j in range(3):
-                    if i != j:
-                        A[simp[:, i], simp[:, j]] = 1
-        except (QhullError, ValueError):
-            pass
+def delaunay_triangles(P: np.ndarray) -> np.ndarray:
+    """The Delaunay simplices of P (n, 2) as a (t, 3) int32 array, in
+    scipy's order; none where the triangulation is degenerate (fewer than 3
+    points, collinear): a frozen copy of the program's
+    `core/build_graphs.delaunay_triangles`."""
+    if P.shape[0] < 3:
+        return np.zeros((0, 3), dtype=np.int32)
+    try:
+        return Delaunay(P).simplices.astype(np.int32)
+    except (QhullError, ValueError):
+        return np.zeros((0, 3), dtype=np.int32)
+
+
+def delaunay_edges(n: int, simplices: np.ndarray):
+    """Directed edges of the n points' Delaunay `simplices`, both
+    directions, in row-major order of the adjacency matrix; the complete
+    graph where there are none (a degenerate triangulation)."""
+    if not len(simplices):
+        A = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
+    else:
+        A = np.zeros((n, n), np.float32)
+        for i in range(3):
+            for j in range(3):
+                if i != j:
+                    A[simplices[:, i], simplices[:, j]] = 1
     src, dst = np.nonzero(A)
     return src.astype(np.int32), dst.astype(np.int32)
 
@@ -49,9 +62,10 @@ def delaunay_edges(P: np.ndarray):
 def synthetic_pair_batch(batch_size: int, n_max: int, e_max: int, *,
                          genuine_ratio=1.0, n_range=(40, 60),
                          image_hw=(240, 320), jitter=1.5, seed: int = 0,
-                         host_images: bool = True) -> dict:
+                         host_images: bool = True, t_max=None) -> dict:
     """One batch of padded pairs as numpy arrays (see the module
-    docstring); `jitter` is the genuine views' keypoint noise in pixels."""
+    docstring); `jitter` is the genuine views' keypoint noise in pixels;
+    `t_max`, where given, the triangle slots of a view."""
     rng = np.random.default_rng(seed)
     N, E, H, W, B = n_max, e_max, image_hw[0], image_hw[1], batch_size
 
@@ -64,6 +78,9 @@ def synthetic_pair_batch(batch_size: int, n_max: int, e_max: int, *,
     n_edges = np.zeros((B, 2), np.int32)
     gt_perm = np.zeros((B, N, N), np.float32)
     label = np.zeros((B,), np.float32)
+    if t_max is not None:
+        tri = np.zeros((B, 2, t_max, 3), np.int32)
+        n_tris = np.zeros((B, 2), np.int32)
 
     for b in range(B):
         genuine = rng.uniform() < genuine_ratio
@@ -80,7 +97,8 @@ def synthetic_pair_batch(batch_size: int, n_max: int, e_max: int, *,
                 P = rng.uniform([8, 8], [W - 8, H - 8],
                                 size=(m, 2)).astype(np.float32)
             P = np.clip(P, 0, [W - 1, H - 1])
-            s, d = delaunay_edges(P)
+            simplices = delaunay_triangles(P)
+            s, d = delaunay_edges(len(P), simplices)
             if len(s) > E:
                 raise ValueError(f"{len(s)} edges exceed e_max {E}")
             nv = len(P)
@@ -89,12 +107,21 @@ def synthetic_pair_batch(batch_size: int, n_max: int, e_max: int, *,
             dst[b, v, :len(d)] = d
             n_nodes[b, v] = nv
             n_edges[b, v] = len(s)
+            if t_max is not None:
+                t = len(simplices)
+                if t > t_max:
+                    raise ValueError(f"{t} triangles exceed t_max {t_max}")
+                tri[b, v, :t] = simplices
+                n_tris[b, v] = t
         if genuine:
             gt_perm[b, :n, :n] = np.eye(n)
 
-    return dict(images=images, points=points, n_nodes=n_nodes, src=src,
-                dst=dst, n_edges=n_edges, gt_perm=gt_perm, label=label,
-                gt_k=gt_perm.sum((1, 2)).astype(np.float32))
+    out = dict(images=images, points=points, n_nodes=n_nodes, src=src,
+               dst=dst, n_edges=n_edges, gt_perm=gt_perm, label=label,
+               gt_k=gt_perm.sum((1, 2)).astype(np.float32))
+    if t_max is not None:
+        out.update(tri=tri, n_tris=n_tris)
+    return out
 
 
 def device_images(batch_size: int, image_hw, seed: int, device):
@@ -110,8 +137,9 @@ def device_images(batch_size: int, image_hw, seed: int, device):
 
 def make_pool(traffic: dict, batch_size: int, seed: int, device):
     """The run's pool of `traffic["pool"]` distinct batches as dicts of
-    tensors on `device`: graphs drawn on the host, images on the device,
-    each batch from its own seed derived from the run's."""
+    tensors on `device`: graphs drawn on the host (with triangles where the
+    traffic sets `t_max`), images on the device, each batch from its own
+    seed derived from the run's."""
     import torch
 
     seeds = np.random.SeedSequence(seed).generate_state(traffic["pool"] * 2)
@@ -122,7 +150,8 @@ def make_pool(traffic: dict, batch_size: int, seed: int, device):
             genuine_ratio=traffic["genuine_ratio"],
             n_range=tuple(traffic["n_range"]),
             image_hw=tuple(traffic["image_hw"]), jitter=traffic["jitter"],
-            seed=int(seeds[2 * i]), host_images=False)
+            seed=int(seeds[2 * i]), host_images=False,
+            t_max=traffic.get("t_max"))
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()
                  if v is not None}
         batch["images"] = device_images(batch_size, traffic["image_hw"],
